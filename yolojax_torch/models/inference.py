@@ -1,0 +1,59 @@
+"""Inference wrapper — counterpart of ``yolojax/models/inference.py``:
+backbone forward + decode, and the detect path (forward → decode →
+per-class NMS) shared by detect, eval and export."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.decode import Detections, decode
+from ..ops.postprocess import PostProcessed, postprocess
+from . import kernel_active
+
+__all__ = ["Inference"]
+
+
+class Inference:
+    """Shared forward+decode for eval/detect/export paths."""
+
+    def __init__(self, model):
+        self.model = model
+        self.anchors = torch.as_tensor(model.anchors, dtype=torch.float32)
+        self._anchors_on = {}
+
+    def _anchors(self, device) -> torch.Tensor:
+        # kept per device: a host→device copy on every call would block the
+        # host until the stream drains
+        if device not in self._anchors_on:
+            self._anchors_on[device] = self.anchors.to(device)
+        return self._anchors_on[device]
+
+    def fold(self, params, state):
+        return self.model.fold(params, state)
+
+    @torch.inference_mode()
+    def __call__(self, folded, images) -> Detections:
+        raw = self.model.apply_folded(folded, images)
+        return decode(raw, self._anchors(raw.device))
+
+    def detect_fn(self, threshold: float, overlap: float, topk: int):
+        """(folded, images) → PostProcessed.
+
+        With ``fusedpost`` selected (the default config) the raw head goes to
+        the fused decode+NMS kernel, which takes precedence over ``nms``;
+        otherwise decode → plain per-class NMS (the ``nms`` kernel is not
+        ported yet).
+        """
+        use_fused = kernel_active("fusedpost", self.model.pallas)
+
+        @torch.inference_mode()
+        def run(folded, images) -> PostProcessed:
+            if use_fused:
+                from ..kernels.postprocess_fused import postprocess_fused
+
+                raw = self.model.apply_folded(folded, images)
+                return postprocess_fused(raw, self._anchors(raw.device), threshold,
+                                         overlap, topk)
+            return postprocess(self(folded, images), threshold, overlap, topk)
+
+        return run
