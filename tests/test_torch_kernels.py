@@ -15,6 +15,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from yolojax.kernels.nms import postprocess_fused_pallas
+from yolojax_torch.kernels import _build
 from yolojax_torch.kernels import postprocess_fused as pf
 from yolojax_torch.ops.postprocess import postprocess_raw
 
@@ -85,8 +86,8 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     """A compiler failure is an error, never a silent fallback."""
     import shutil
 
-    monkeypatch.setattr(pf, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(pf, "_nvcc", lambda: shutil.which("false"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", lambda: shutil.which("false"))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         pf.build()
     assert not list(tmp_path.glob("*.so"))

@@ -167,7 +167,7 @@ def test_config_resolves_to_the_port():
 
 
 @pytest.mark.parametrize("path,error,missing", [
-    ("yolojax.models.mobilenet.MobileNet", ModuleNotFoundError, "yolojax_torch.models.mobilenet"),
+    ("yolojax.utils.train.adam", ModuleNotFoundError, "yolojax_torch.utils.train"),
     ("yolojax.models.darknet.Tiny", AttributeError, "yolojax_torch.models.darknet.Tiny"),
 ])
 def test_unported_config_values_name_the_missing_part(path, error, missing):

@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` at first use, ``ctypes``.
+
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface.  It is
+compiled for ``sm_90a`` into ``build/yolojax_torch/<name>-<hash>.so``, where
+the hash covers the source and the flags, so an edited source builds anew.
+No fast-math and ``--fmad=false``: the compiler contracts no multiply and add
+into one rounding that the source did not ask for.  ``-Xptxas=-v``'s report
+(registers, spills) is kept beside the library as ``.log``.
+
+Every library exports ``yolo_cuda_error_string(int)``; each launch entry
+point returns ``cudaGetLastError()``, which :func:`check` turns into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all", "load", "check"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolojax_torch"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[Path, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = shutil.which("nvcc") or (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
+    if not path or not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the "
+                           "kernels in yolojax_torch/csrc")
+    return path
+
+
+def build(source: Path) -> Path:
+    """Compile ``source`` if no build for this source + flags exists; returns
+    the library's path."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {source.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_all(sources) -> list[Path]:
+    """Build several sources at once, one ``nvcc`` each."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
+
+
+def load(source: Path, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load ``source``'s library once per process;
+    ``signatures`` maps each entry point to its ``argtypes``, all of which
+    return an ``int`` error code."""
+    if source not in _loaded:
+        lib = ctypes.CDLL(str(build(source)))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.yolo_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[source] = lib
+    return _loaded[source]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.yolo_cuda_error_string(err).decode()} ({err})")

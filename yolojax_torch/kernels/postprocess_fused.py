@@ -1,9 +1,8 @@
 """Fused decode + per-class greedy NMS: the Hopper kernel and its plain version.
 
 Replaces ``yolojax/kernels/nms.py::postprocess_fused_pallas``.  The kernel
-(``csrc/postprocess_fused.cu``) is CUDA C++ for ``sm_90a``, compiled with
-``nvcc`` at first use into ``build/yolojax_torch/`` under the hash of its
-source and flags, and loaded with ``ctypes``.  The plain version is
+(``csrc/postprocess_fused.cu``) is CUDA C++ for ``sm_90a``, built and loaded
+by ``kernels/_build.py``.  The plain version is
 ``ops.postprocess.postprocess_raw`` (decode → batched greedy NMS).
 
 :func:`postprocess_fused` runs the plain version only for a raw head that
@@ -15,67 +14,26 @@ failed build, load or launch is an error, never a fallback.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..ops.postprocess import PostProcessed, postprocess_raw
+from . import _build
 
 __all__ = ["postprocess_fused", "build", "SOURCE"]
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "postprocess_fused.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolojax_torch"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "postprocess_fused.cu"
 # static shared memory a block gets without opting in
 _SMEM_LIMIT = 48 * 1024
 
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    path = shutil.which("nvcc") or (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
-    if not path or not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                           f"{SOURCE.name}")
-    return path
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"yolo_postprocess_fused": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
+                                          _I32, _I32, _F32, _F32, _I32, _PTR]}
 
 
-def build() -> Path:
-    """Compile the kernel library if no build for this source + flags exists;
-    returns its path.  The compiler's report (``-Xptxas=-v``) is kept beside
-    it as ``.log``."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"postprocess_fused-{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.yolo_postprocess_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                           i32, i32, i32, i32, i32, f32, f32, i32, ptr]
-    lib.yolo_postprocess_fused.restype = i32
-    lib.yolo_cuda_error_string.argtypes = [i32]
-    lib.yolo_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+def build():
+    """Compile the kernel library if needed; returns its path."""
+    return _build.build(SOURCE)
 
 
 def postprocess_fused(raw: torch.Tensor, anchors, threshold: float, overlap: float,
@@ -105,15 +63,13 @@ def postprocess_fused(raw: torch.Tensor, anchors, threshold: float, overlap: flo
     yx_max = torch.empty((b, c, topk, 2), dtype=torch.float32, device=dev)
     conf = torch.empty((b, c, topk), dtype=torch.float32, device=dev)
     count = torch.empty((b, c), dtype=torch.int32, device=dev)
-    lib = _library()
+    lib = _build.load(SOURCE, _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.yolo_postprocess_fused(
             raw32.data_ptr(), anchors.data_ptr(), yx_min.data_ptr(), yx_max.data_ptr(),
             conf.data_ptr(), count.data_ptr(), b, h, w, a, c, threshold, overlap, topk, stream)
-    if err:
-        raise RuntimeError("postprocess_fused launch failed: "
-                           f"{lib.yolo_cuda_error_string(err).decode()} ({err})")
+    _build.check(lib, err, "postprocess_fused")
     postprocess_fused.launches += 1
     keep = torch.arange(topk, device=dev) < count[..., None]
     return PostProcessed(yx_min, yx_max, conf, keep)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BNConfig", "fold_bn", "leaky_relu", "conv_bias_leaky"]
+__all__ = ["BNConfig", "fold_bn", "leaky_relu", "bias_leaky", "conv_bias_leaky"]
 
 
 def leaky_relu(x, slope=0.1):
@@ -69,11 +69,18 @@ def fold_bn(params: dict, state: dict, bn: BNConfig | None = None) -> dict:
             "b": beta - state["mean"] * scale}
 
 
-def conv_bias_leaky(x, w, b, *, stride: int = 1, groups: int = 1, act: bool = True):
-    """Folded block: conv in the compute dtype (``x``'s and ``w``'s), then
-    ``+ b`` (f32) and leaky in f32, cast back.  Padding is symmetric ``k//2``."""
-    y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=groups)
+def bias_leaky(y, b, act: bool = True):
+    """Epilogue of a folded block: ``y`` (B, C, H, W) conv output in the
+    compute dtype, ``+ b`` (f32) and leaky in f32, cast back to ``y``'s dtype
+    (the folded-params case of ``yolojax/models/engine.py::_post_conv``)."""
     z = y.float() + b.view(1, -1, 1, 1)
     if act:
         z = leaky_relu(z)
     return z.to(y.dtype)
+
+
+def conv_bias_leaky(x, w, b, *, stride: int = 1, groups: int = 1, act: bool = True):
+    """Folded block: conv in the compute dtype (``x``'s and ``w``'s), then
+    :func:`bias_leaky`.  Padding is symmetric ``k//2``."""
+    y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=groups)
+    return bias_leaky(y, b, act)

@@ -12,6 +12,12 @@ A model is an ordered plan of ops over one running tensor plus named slots:
 The running tensor is NCHW in ``channels_last`` memory (NHWC bytes), which is
 what cuDNN's bf16 convolutions want; images come in NHWC, so the entry
 ``permute`` is a view.  Training (``train=True``) is not ported yet.
+
+Kernel routing follows the JAX engine (``yolojax/models/engine.py:86-135``):
+with ``dwsep`` selected, a depthwise 3×3 conv and the 1×1 conv after it run
+as one fused kernel; with ``dwconv`` selected, a depthwise 3×3 conv that did
+not pair runs in the depthwise kernel.  The kernels take NHWC tensors, which
+are the running tensor's own bytes, so both permutes around a call are views.
 """
 
 from __future__ import annotations
@@ -19,11 +25,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import dwconv as dwconv_k
+from ..kernels import dwsep as dwsep_k
 from ..ops.reorg import reorg
-from . import LayerDef
+from . import LayerDef, kernel_active
 from .blocks import BNConfig, conv_bias_leaky, fold_bn
 
-__all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels"]
+__all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights"]
+
+# the dwsep pair gate's bound on the input height (``engine.py:97``)
+DWSEP_MAX_H = 40
 
 
 def plan_convs(plan) -> list[LayerDef]:
@@ -41,6 +52,8 @@ def resolve_in_channels(plan, in_ch: int) -> None:
         if kind == "conv":
             d = op[1]
             d.in_ch = ch
+            if d.groups == -1:  # depthwise marker
+                d.groups = ch
             ch = d.out_ch
         elif kind == "mark":
             slots[op[1]] = ch
@@ -52,24 +65,68 @@ def resolve_in_channels(plan, in_ch: int) -> None:
             ch += slots[op[1]]
 
 
+def _dw_routable(d: LayerDef) -> bool:
+    """A depthwise 3×3 conv whose channels a depthwise kernel takes (the
+    lane-aligned gate ``in_ch % 128 == 0`` of ``engine.py:97, 129``)."""
+    return d.groups > 1 and d.ksize == 3 and d.in_ch % 128 == 0
+
+
+def _pointwise_after(plan, i) -> LayerDef | None:
+    """The 1×1 conv with leaky right after ``plan[i]``, which the dwsep kernel
+    fuses with a depthwise conv there, or None."""
+    nxt = plan[i + 1] if i + 1 < len(plan) else None
+    if nxt and nxt[0] == "conv" and nxt[1].ksize == 1 and nxt[1].groups == 1 and nxt[1].act:
+        return nxt[1]
+    return None
+
+
+def _dwsep_pair(plan, i, height: int) -> LayerDef | None:
+    """Pointwise partner of the depthwise conv ``plan[i]`` when the pair goes
+    to the dwsep kernel (``engine.py:92-106``): the dw conv has leaky and an
+    input height ``≤ DWSEP_MAX_H``."""
+    d = plan[i][1]
+    if not (_dw_routable(d) and d.act and height <= DWSEP_MAX_H):
+        return None
+    return _pointwise_after(plan, i)
+
+
 def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat16,
-             reorg_order: str = "darknet"):
+             reorg_order: str = "darknet", pallas: frozenset = frozenset()):
     """Execute the plan on folded ``{w, b}`` params.
 
     ``x``: (B, H, W, C) images → (B, h, w, C_out) NHWC output in the compute
     dtype.  The input is cast to the compute dtype before the first conv.
+    ``pallas`` holds the ``[model] pallas`` tokens; a routed layer needs the
+    weight layouts of :func:`add_kernel_weights` in ``folded``.
     """
     if train:
         raise NotImplementedError("training forward is not ported yet")
+    use_dw_k = kernel_active("dwconv", pallas)
+    use_dwsep = kernel_active("dwsep", pallas)
     slots = {}
     x = x.to(compute_dtype).permute(0, 3, 1, 2)
-    for op in plan:
+    skip = -1
+    for i, op in enumerate(plan):
+        if i == skip:
+            continue
         kind = op[0]
         if kind == "conv":
             d = op[1]
             p = folded[d.name]
-            x = conv_bias_leaky(x, p["w"], p["b"], stride=d.stride, groups=d.groups,
-                                act=d.act)
+            # x is NCHW-shaped, so its height is x.shape[2] (the JAX engine
+            # reads x.shape[1] of an NHWC array)
+            n = _dwsep_pair(plan, i, x.shape[2]) if use_dwsep else None
+            if n is not None:
+                q = folded[n.name]
+                x = dwsep_k.dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
+                                  d.stride).permute(0, 3, 1, 2)
+                skip = i + 1
+            elif use_dw_k and _dw_routable(d):
+                x = dwconv_k.dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
+                                       d.act).permute(0, 3, 1, 2)
+            else:
+                x = conv_bias_leaky(x, p["w"], p["b"], stride=d.stride, groups=d.groups,
+                                    act=d.act)
         elif kind == "pool":
             x = F.max_pool2d(x, op[1], op[2])
         elif kind == "mark":
@@ -84,6 +141,23 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
         else:
             raise ValueError(f"unknown plan op {kind!r}")
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def add_kernel_weights(plan, folded, pallas: frozenset) -> None:
+    """Store, once, the weight layouts the selected kernels read, beside the
+    OIHW ``w`` of each layer they may take: ``taps`` (3, 3, C) for a routable
+    depthwise conv, ``w_io`` (C, Cout) for the 1×1 conv after it."""
+    use_dw_k = kernel_active("dwconv", pallas)
+    use_dwsep = kernel_active("dwsep", pallas)
+    for i, op in enumerate(plan):
+        if not (op[0] == "conv" and _dw_routable(op[1]) and (use_dw_k or use_dwsep)):
+            continue
+        lp = folded[op[1].name]
+        lp["taps"] = lp["w"][:, 0].permute(1, 2, 0).contiguous()
+        n = _pointwise_after(plan, i) if use_dwsep and op[1].act else None
+        if n is not None:
+            lq = folded[n.name]
+            lq["w_io"] = lq["w"][:, :, 0, 0].t().contiguous()
 
 
 def fold_plan(plan, params, state, bn: BNConfig):
