@@ -9,7 +9,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
 
 1. device — a CUDA device must be present; prints its name and
    ``nvidia-smi``'s name and power limit;
-2. build — compiles the three kernels of ``yolojax_torch/csrc`` at once, one
+2. build — compiles the six kernels of ``yolojax_torch/csrc`` at once, one
    ``nvcc`` each, and prints each one's registers and spills;
 3. kernels against their plain versions on the card:
    * fused decode+NMS — raw heads from numpy seeds, f32 and bf16, four
@@ -20,27 +20,43 @@ Phases, each of which passes or raises (any failure exits non-zero):
      bf16, stride 1 and 2: f32 rtol/atol 1e-4 (the JAX tests' bound), bf16
      rtol/atol 1e-2 (about one bf16 ulp: the plain version sums in cuDNN's
      order); prints the share of output elements that are not bit-identical;
+   * nms_select — the four geometries' decoded heads, bench and saturated
+     densities, boxes broadcast over the classes and one box row per class,
+     max_out 100 (and 300 at 19×19): idx, conf and valid identical; then the
+     postprocess with its gather against the plain one;
+   * maxpool2x2 and reorg_s2d — the five routed pool shapes at batch 8, c21's
+     (8,26,26,64), C = 3 and 72 and 2×2 inputs, f32 and bf16: bit-identical;
 4. Darknet main path — full-width Darknet-19 at 416, VOC classes and anchors,
    bf16, built from ``config.ini`` with a seeded fresh init (objectness bias
    −6, the bench density), through ``Inference.detect_fn(0.005, 0.45, 100)``
-   on batches of 8; the fused kernel's launch counter must have moved once
-   per batch, the outputs must be finite and ``keep`` must match the plain
-   postprocess of the same raw head; then ``cli.detect.detect_image`` on one
-   seeded 480×640 image;
+   on batches of 8; every launch counter is set to 0 just before and read
+   just after, and must show one fused launch per batch and nothing else;
+   the outputs must be finite and ``keep`` must match the plain postprocess
+   of the same raw head; then ``cli.detect.detect_image`` on one seeded
+   480×640 image;
 5. MobileNet main path — full-width MobileNet-YOLOv2 at 416 from
    ``config.ini`` + ``config/mobilenet.ini`` with ``pallas = nms fusedpost
-   dwsep dwconv``, the same seeded init and density, batches of 8 through
-   ``detect_fn``: dwconv launched 4 times, dwsep 7 times and the fused kernel
-   once per batch; finite outputs, ``keep`` as the plain postprocess; the
-   raw head against the same forward without ``dwsep dwconv`` (cuDNN): f32
-   rtol/atol 1e-3 with TF32 off, bf16 mean abs diff ≤ 1 % of mean |raw|;
-   one more batch with the objectness bias at 0, where the random head has
-   picks, against the plain postprocess; then ``detect_image``;
-6. times (Darknet's right after phase 4, MobileNet's after phase 5) — CUDA
-   events, warm-up, median of 7 (or of 8 taken in turns): the fused kernel
-   against its plain version on Darknet's raw heads, each routed depthwise
-   layer shape against its plain version, and detect images/s of Darknet and
-   of MobileNet with and without its kernels, at batch 8 and 128.
+   dwsep dwconv``, the same seeded init, density and checks: dwconv 4,
+   dwsep 7 and fused 1 launch per batch; one more batch with the objectness
+   bias at 0, where the random head has picks, against the plain
+   postprocess; the raw head against the same forward without ``dwsep
+   dwconv`` (cuDNN): f32 rtol/atol 1e-3 with TF32 off, bf16 mean abs diff
+   ≤ 1 % of mean |raw|; then ``detect_image``;
+6. Darknet-s2d main path — Darknet-19 from ``config.ini`` with ``reorg =
+   s2d`` and ``pallas = nms pool reorg``, the same init, density and
+   checks: nms_select 1, maxpool2x2 3 and reorg_s2d 1 launch per batch; the
+   dense batch; the raw head bit-identical to the same forward without
+   ``pool reorg`` in f32 (TF32 off) and, where cuDNN allows, in bf16 (else
+   within MobileNet's 1 % bound, said so); then ``detect_image``;
+7. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
+   with ``pallas = nms fusedpost pool``: maxpool2x2 2 and fused 1 launch per
+   batch, a (B,13,13,125) raw head, the dense batch, the raw head against
+   the forward without ``pool`` as for Darknet-s2d, ``detect_image``;
+8. times (each model's right after its path) — CUDA events, warm-up, median
+   of 7 (or of 8 taken in turns): each kernel against its plain version at
+   batch 8 and 128 (fused and nms_select on Darknet's raw and decoded heads,
+   each routed depthwise and pool shape, the reorg at c21's shape), and
+   detect images/s of each path, with and without its forward kernels.
 
 Prints a ``{"kernels": [...]}`` JSON line, then, last, ``{"ok": true, "device":
 {...}}``.  Times are information, not a benchmark.
@@ -48,6 +64,7 @@ Prints a ``{"kernels": [...]}`` JSON line, then, last, ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,19 +80,38 @@ BENCH_OBJECTNESS = -6.0     # background-dominated scores, as bench.py sets them
 # (B, H, W, A, C): VOC at 416 and 608, COCO's 80 classes, an odd tiny grid
 GEOMETRIES = [(8, 13, 13, 5, 20), (8, 19, 19, 5, 20), (2, 13, 13, 5, 80), (1, 4, 3, 2, 3)]
 REPS = 7
-SIZE = 416                  # input size of both models, config.ini's [data] sizes
+SIZE = 416                  # input size of every model, config.ini's [data] sizes
+TIME_BATCHES = (8, 128)
 MOBILENET_TOKENS = "nms fusedpost dwsep dwconv"
+S2D_TOKENS = "nms pool reorg"
+TINY_TOKENS = "nms fusedpost pool"
 # MobileNet-416's routed layers, per forward: (count, H, C, Cout, stride)
 DWCONV_LAYERS = [(1, 104, 128, 128, 1), (1, 104, 128, 128, 2), (1, 52, 256, 256, 1),
                  (1, 52, 256, 256, 2)]
 DWSEP_LAYERS = [(5, 26, 512, 512, 1), (1, 26, 512, 1024, 2), (1, 13, 1024, 1024, 1)]
+# routed pools per forward, (H, C) of the input: Darknet's pool3-pool5, Tiny's pool4-pool5
+DARKNET_POOLS = [(104, 128), (52, 256), (26, 512)]
+TINY_POOLS = [(52, 128), (26, 256)]
+REORG_SHAPE = (26, 64)      # c21's output at 416: (B, 26, 26, 64) -> (B, 13, 13, 256)
+KERNELS = ("postprocess_fused", "dwconv3x3", "dwsep", "nms_select", "maxpool2x2", "reorg_s2d")
+
+
+def per_batch(**counts) -> dict:
+    """Kernel launches per detect_fn batch: the named counts, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
 # kernel launches per detect_fn batch on each main path
-DARKNET_LAUNCHES = {"postprocess_fused": 1, "dwconv3x3": 0, "dwsep": 0}
-MOBILENET_LAUNCHES = {"postprocess_fused": 1, "dwconv3x3": 4, "dwsep": 7}
+DARKNET_LAUNCHES = per_batch(postprocess_fused=1)
+MOBILENET_LAUNCHES = per_batch(postprocess_fused=1, dwconv3x3=4, dwsep=7)
+S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=3, reorg_s2d=1)
+TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=2)
 # kernel-vs-plain cases beyond the routed shapes: odd spatial sizes, C % 128 != 0
 DWCONV_EXTRA = [(8, 27, 128, 128, 2), (8, 13, 1024, 1024, 2), (2, 13, 72, 72, 1),
                 (2, 13, 36, 36, 2)]
 DWSEP_EXTRA = [(8, 27, 64, 96, 2), (8, 13, 512, 1024, 2), (2, 13, 72, 40, 1)]
+POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3)]
+REORG_EXTRA = [(2, 26, 26, 3), (2, 26, 26, 72), (2, 2, 2, 64), (2, 2, 2, 3)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -98,10 +134,11 @@ def check_device() -> tuple[str, str]:
 
 
 def build_kernels() -> None:
-    from yolojax_torch.kernels import _build, dwconv, dwsep, postprocess_fused
+    from yolojax_torch.kernels import _build, dwconv, dwsep, nms, pool, postprocess_fused, reorg
 
     t0 = time.perf_counter()
-    libs = _build.build_all([postprocess_fused.SOURCE, dwconv.SOURCE, dwsep.SOURCE])
+    libs = _build.build_all([postprocess_fused.SOURCE, dwconv.SOURCE, dwsep.SOURCE, nms.SOURCE,
+                             pool.SOURCE, reorg.SOURCE])
     log(f"[build] {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s "
         "(in parallel)")
     for lib in libs:
@@ -112,43 +149,75 @@ def build_kernels() -> None:
                     log(f"[build] ptxas {lib.name.split('-')[0]}: {line.strip()}")
 
 
-def compare(got, want, c: int, what: str) -> float:
-    """Kept slots identical in order; returns the largest abs difference."""
+def compare(got, want, c: int, what: str, det=None) -> float:
+    """Kept slots identical in order, conf to rtol 1e-5 (2e-5 at C=80),
+    corners to atol 1e-5; returns the largest abs difference.
+
+    With ``det``, the plain decode of the same raw head, a kept slot whose
+    corners differ passes only as a near tie: the kernel's box must be a
+    candidate of that image whose plain score for the class equals the plain
+    pick's score to the conf tolerance.  The fused kernel's ``expf`` and
+    PyTorch's sigmoid and softmax may round a saturated score an ulp apart,
+    and the greedy loop then takes near-equal scores in another order."""
     keep = want.keep.cpu().numpy()
     if not np.array_equal(got.keep.cpu().numpy(), keep):
         raise AssertionError(f"{what}: keep differs "
                              f"({int(got.keep.sum())} kept vs {int(keep.sum())} plain)")
+    rtol = 2e-5 if c == 80 else 1e-5
     conf_got, conf_want = (np.where(keep, t.conf.cpu().numpy(), 0) for t in (got, want))
-    np.testing.assert_allclose(conf_got, conf_want, rtol=2e-5 if c == 80 else 1e-5, atol=0,
-                               err_msg=f"{what}: conf")
+    np.testing.assert_allclose(conf_got, conf_want, rtol=rtol, atol=0, err_msg=f"{what}: conf")
     err = float(np.abs(conf_got - conf_want).max(initial=0.0))
-    for name in ("yx_min", "yx_max"):
-        g, w = (np.where(keep[..., None], getattr(t, name).cpu().numpy(), 0) for t in (got, want))
-        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=f"{what}: {name}")
-        err = max(err, float(np.abs(g - w).max(initial=0.0)))
+    corners = [(getattr(got, n).cpu().numpy(), getattr(want, n).cpu().numpy())
+               for n in ("yx_min", "yx_max")]
+    off = keep & np.any([(np.abs(g - w) > 1e-5).any(-1) for g, w in corners], axis=0)
+    if off.any():
+        if det is None:
+            raise AssertionError(f"{what}: {int(off.sum())} kept slots pick other boxes")
+        dmin, dmax, dconf = (t.float().cpu().numpy() for t in (det.yx_min, det.yx_max, det.conf))
+        (gmin, _), (gmax, _) = corners
+        for b, k, t in zip(*np.nonzero(off)):
+            box = ((np.abs(dmin[b] - gmin[b, k, t]).max(-1) <= 1e-5)
+                   & (np.abs(dmax[b] - gmax[b, k, t]).max(-1) <= 1e-5))
+            pick = conf_want[b, k, t]
+            if not (np.abs(dconf[b, box, k] - pick) <= rtol * pick).any():
+                raise AssertionError(f"{what}: slot (image {b}, class {k}, {t}) picks a box that "
+                                     "is no near tie of the plain pick")
+        log(f"[tie] {what}: {int(off.sum())} of {int(keep.sum())} kept slots pick another "
+            f"candidate whose plain score equals the plain pick's to rtol {rtol:g}")
+    for g, w in corners:
+        same = (keep & ~off)[..., None]
+        err = max(err, float(np.abs(np.where(same, g - w, 0)).max(initial=0.0)))
     return err
+
+
+def seeded_raw(rng, b, h, w, a, c, density: str) -> np.ndarray:
+    """A raw head from numpy: normal logits, or (bench) objectness near −6."""
+    raw = (rng.standard_normal((b, h, w, a * (5 + c))) * 2).astype(np.float32)
+    if density == "bench":
+        obj = raw.reshape(b, h, w, a, 5 + c)[..., 4]
+        obj[...] = BENCH_OBJECTNESS + 0.5 * obj
+    return raw
 
 
 def fused_vs_plain() -> float:
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
-    from yolojax_torch.ops.postprocess import postprocess_raw
+    from yolojax_torch.ops.decode import decode
+    from yolojax_torch.ops.postprocess import postprocess
 
     rng = np.random.default_rng(0)
     worst, cases = 0.0, 0
     for b, h, w, a, c in GEOMETRIES:
         anchors = rng.uniform(0.5, 4.0, (a, 2)).astype(np.float32)
         for density in ("bench", "saturated"):
-            raw = (rng.standard_normal((b, h, w, a * (5 + c))) * 2).astype(np.float32)
-            if density == "bench":
-                obj = raw.reshape(b, h, w, a, 5 + c)[..., 4]
-                obj[...] = BENCH_OBJECTNESS + 0.5 * obj
+            raw = seeded_raw(rng, b, h, w, a, c, density)
             for dtype in (torch.float32, torch.bfloat16):
                 head = torch.from_numpy(raw).to("cuda", dtype)
                 got = postprocess_fused(head, anchors, THRESHOLD, OVERLAP, TOPK)
-                want = postprocess_raw(head, anchors, THRESHOLD, OVERLAP, TOPK)
+                det = decode(head, anchors)
+                want = postprocess(det, THRESHOLD, OVERLAP, TOPK)
                 torch.cuda.synchronize()
                 what = f"({b},{h},{w},{a * (5 + c)}) {density} {str(dtype)[6:]}"
-                err = compare(got, want, c, what)
+                err = compare(got, want, c, what, det)
                 worst, cases = max(worst, err), cases + 1
                 log(f"[kernel] fused {what}: match, {int(want.keep.sum())} picks, "
                     f"max abs err {err:.3g}")
@@ -201,6 +270,95 @@ def dw_vs_plain() -> dict:
     return worst
 
 
+def decoded(rng, b, h, w, a, c, density: str):
+    """A seeded raw head decoded on the card: (Detections, anchors)."""
+    from yolojax_torch.ops.decode import decode
+
+    anchors = torch.from_numpy(rng.uniform(0.5, 4.0, (a, 2)).astype(np.float32)).cuda()
+    raw = torch.from_numpy(seeded_raw(rng, b, h, w, a, c, density)).cuda()
+    return decode(raw, anchors)
+
+
+def nms_vs_plain() -> float:
+    """nms_select against its plain version: idx, conf and valid identical,
+    boxes broadcast over the classes and not; postprocess_nms as postprocess."""
+    from yolojax_torch.kernels.nms import nms_select, postprocess_nms
+    from yolojax_torch.ops.nms import nms_select as nms_plain
+    from yolojax_torch.ops.postprocess import postprocess
+
+    rng = np.random.default_rng(8)
+    worst, cases = 0.0, 0
+    for b, h, w, a, c in GEOMETRIES:
+        for density in ("bench", "saturated"):
+            det = decoded(rng, b, h, w, a, c, density)
+            n = det.conf.shape[1]
+            scores = det.conf.transpose(1, 2)
+            boxes = {"broadcast": (det.yx_min[:, None], det.yx_max[:, None]),
+                     "per class": (det.yx_min[:, None].expand(b, c, n, 2).contiguous(),
+                                   det.yx_max[:, None].expand(b, c, n, 2).contiguous())}
+            max_outs = (TOPK, 300) if (h, density) == (19, "saturated") else (TOPK,)
+            for (layout, (yx_min, yx_max)) in boxes.items():
+                for max_out in max_outs:
+                    got = nms_select(yx_min, yx_max, scores, THRESHOLD, OVERLAP, max_out)
+                    want = nms_plain(yx_min, yx_max, scores, THRESHOLD, OVERLAP, max_out)
+                    torch.cuda.synchronize()
+                    what = f"nms_select ({b},{c},{n}) {density} boxes {layout} max_out {max_out}"
+                    for g, v, part in zip(got, want, ("idx", "conf", "valid")):
+                        if g.shape != v.shape or g.dtype != v.dtype or not torch.equal(g, v):
+                            raise AssertionError(f"{what}: {part} differs")
+                    err = (got[1] - want[1]).abs().max().item()
+                    worst, cases = max(worst, err), cases + 1
+                    log(f"[kernel] {what}: identical, {int(want[2].sum())} picks")
+            got = postprocess_nms(det, THRESHOLD, OVERLAP, TOPK)
+            want = postprocess(det, THRESHOLD, OVERLAP, TOPK)
+            err = compare(got, want, c, f"postprocess_nms ({b},{c},{n}) {density}")
+            worst, cases = max(worst, err), cases + 1
+    log(f"[kernel] nms_select: {cases} cases match the plain version; max abs err {worst:.3g}")
+    return worst
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def check_bits(got, want, what: str) -> float:
+    """Same shape, dtype and bits; returns the largest abs difference (0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: kernel gave {tuple(got.shape)} {got.dtype}, plain "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"{what}: not bit-identical "
+                             f"({(got != want).float().mean().item() * 100:.4f} % differ)")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def layout_vs_plain() -> dict:
+    """maxpool2x2 and reorg_s2d against their plain versions: bit-identical."""
+    from yolojax_torch.kernels.pool import maxpool2x2, maxpool2x2_plain
+    from yolojax_torch.kernels.reorg import reorg_s2d
+    from yolojax_torch.ops.reorg import reorg_s2d as reorg_plain
+
+    rng = np.random.default_rng(9)
+    worst = {"maxpool2x2": 0.0, "reorg_s2d": 0.0}
+    cases = [("maxpool2x2", (8, h, h, c)) for h, c in DARKNET_POOLS + TINY_POOLS]
+    cases += [("maxpool2x2", shape) for shape in POOL_EXTRA]
+    cases += [("reorg_s2d", (8, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]))]
+    cases += [("reorg_s2d", shape) for shape in REORG_EXTRA]
+    for name, shape in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+            if name == "maxpool2x2":
+                got, want = maxpool2x2(x), maxpool2x2_plain(x)
+            else:
+                got, want = reorg_s2d(x, 2), reorg_plain(x, 2)
+            torch.cuda.synchronize()
+            what = f"{name} {shape}->{tuple(want.shape)} {str(dtype)[6:]}"
+            worst[name] = max(worst[name], check_bits(got, want, what))
+            log(f"[kernel] {what}: bit-identical")
+    log(f"[kernel] pool and reorg: {2 * len(cases)} cases bit-identical to the plain versions")
+    return worst
+
+
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> list[float]:
     for _ in range(warmup):
         fn()
@@ -229,9 +387,18 @@ def in_turns(plain, kernel) -> tuple[float, float]:
 def launch_counters():
     from yolojax_torch.kernels.dwconv import dwconv3x3
     from yolojax_torch.kernels.dwsep import dwsep
+    from yolojax_torch.kernels.nms import nms_select
+    from yolojax_torch.kernels.pool import maxpool2x2
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
+    from yolojax_torch.kernels.reorg import reorg_s2d
 
-    return {"postprocess_fused": postprocess_fused, "dwconv3x3": dwconv3x3, "dwsep": dwsep}
+    return {"postprocess_fused": postprocess_fused, "dwconv3x3": dwconv3x3, "dwsep": dwsep,
+            "nms_select": nms_select, "maxpool2x2": maxpool2x2, "reorg_s2d": reorg_s2d}
+
+
+def seeded_images(seed: int, b: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).uniform(0, 1, (b, SIZE, SIZE, 3))
+                            .astype(np.float32)).cuda()
 
 
 def drive(config, what: str, expect: dict):
@@ -242,7 +409,8 @@ def drive(config, what: str, expect: dict):
     from yolojax_torch.cli.common import build, load_weights_auto
     from yolojax_torch.cli.detect import detect_image
     from yolojax_torch.models.inference import Inference
-    from yolojax_torch.ops.postprocess import postprocess_raw
+    from yolojax_torch.ops.decode import decode
+    from yolojax_torch.ops.postprocess import postprocess
 
     category, anchors, model = build(config)
     size = int(config.get("data", "sizes").split(",")[0])
@@ -253,8 +421,8 @@ def drive(config, what: str, expect: dict):
     run = inference.detect_fn(THRESHOLD, OVERLAP, TOPK)
     n_params = sum(lp["w"].numel() + lp["b"].numel() for lp in folded.values())
     log(f"[{what}] {type(model).__name__} {size}x{size}, {len(category)} classes, "
-        f"{len(anchors)} anchors, {model.dtype}, kernels {sorted(model.pallas)}, "
-        f"{n_params} folded params")
+        f"{len(anchors)} anchors, {model.dtype}, reorg {model.reorg_order}, kernels "
+        f"{sorted(model.pallas)}, {n_params} folded params")
 
     rng = np.random.default_rng(1)
     batches = [torch.from_numpy(rng.uniform(0, 1, (8, size, size, 3)).astype(np.float32))
@@ -265,7 +433,7 @@ def drive(config, what: str, expect: dict):
     outs = [run(folded, x) for x in batches]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {name: per_batch * len(batches) for name, per_batch in expect.items()}
+    want = {name: n * len(batches) for name, n in expect.items()}
     if launches != want:
         raise AssertionError(f"{what}: {len(batches)} batches launched {launches}, "
                              f"expected {want}")
@@ -278,8 +446,11 @@ def drive(config, what: str, expect: dict):
             if not all(bool(torch.isfinite(t).all()) for t in (out.yx_min, out.yx_max, out.conf)):
                 raise AssertionError(f"{what} batch {i}: non-finite outputs")
             raw = model.apply_folded(folded, x)
-            plain = postprocess_raw(raw, anchors_t, THRESHOLD, OVERLAP, TOPK)
-            compare(out, plain, model.num_classes, f"{what} batch {i}")
+            if raw.shape != (8, size // 32, size // 32, model.out_channels):
+                raise AssertionError(f"{what} batch {i}: raw head {tuple(raw.shape)}")
+            det = decode(raw, anchors_t)
+            plain = postprocess(det, THRESHOLD, OVERLAP, TOPK)
+            compare(out, plain, model.num_classes, f"{what} batch {i}", det)
             picks = out.keep.sum(-1).float()
             log(f"[{what}] batch {i}: raw {tuple(raw.shape)} {raw.dtype}, keep matches the "
                 f"plain postprocess; picks per (image, class) mean {picks.mean().item():.2f} "
@@ -296,6 +467,83 @@ def drive(config, what: str, expect: dict):
     return model, params, state, folded, run, launches
 
 
+def dense_batch(model, folded, run, what: str) -> None:
+    """At the bench density a random head leaves every score under the
+    threshold; hold the path's detections to the plain postprocess where there
+    are picks too: objectness bias 0 on one more batch."""
+    from yolojax_torch.ops.decode import decode
+    from yolojax_torch.ops.postprocess import postprocess
+
+    dense = dict(folded, out=dict(folded["out"], b=folded["out"]["b"].clone()))
+    dense["out"]["b"].view(-1, 5 + model.num_classes)[:, 4] = 0.0
+    x = seeded_images(7, 8)
+    with torch.inference_mode():
+        out = run(dense, x)
+        det = decode(model.apply_folded(dense, x), torch.as_tensor(model.anchors, device="cuda"))
+        plain = postprocess(det, THRESHOLD, OVERLAP, TOPK)
+        compare(out, plain, model.num_classes, f"{what} dense batch", det)
+    picks = out.keep.sum(-1).float()
+    if not picks.max() > 0:
+        raise AssertionError(f"{what} dense batch: no picks to compare")
+    log(f"[{what}] dense batch (objectness bias 0): keep matches the plain postprocess; "
+        f"picks per (image, class) mean {picks.mean().item():.2f} max {int(picks.max().item())}")
+
+
+def without(model, tokens: set):
+    """The same model with the kernel ``tokens`` removed: it runs on the same
+    folded weights (the plain path reads only their ``w`` and ``b``)."""
+    return dataclasses.replace(model, pallas=model.pallas - set(tokens))
+
+
+def raw_vs_without(model, folded, config_fn, drop: set, what: str, exact: bool) -> None:
+    """The raw head against the same forward without the kernels ``drop``, on
+    the same weights and images, in bf16 and (rebuilt from the same seed) in
+    f32 with TF32 off.  ``exact``: kernels that change no value (pool,
+    reorg), so the convs see the same inputs and the heads should be
+    bit-identical; f32 must be, bf16 falls back to the 1 % bound if cuDNN's
+    algorithm choice differs.  Otherwise: bf16 mean abs diff ≤ 1 % of mean
+    |raw|, f32 rtol/atol 1e-3."""
+    from yolojax_torch.cli.common import build, load_weights_auto
+
+    label = " ".join(sorted(drop))
+    x = seeded_images(5, 8)
+    with torch.inference_mode():
+        got = model.apply_folded(folded, x)
+        want = without(model, drop).apply_folded(folded, x)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what} bf16: non-finite raw head")
+        diff = (got.float() - want.float()).abs()
+        ratio = diff.mean().item() / want.float().abs().mean().item()
+        same = torch.equal(bits(got), bits(want))
+        log(f"[{what}] bf16 raw head vs the forward without {label}: "
+            f"{'bit-identical' if same else 'not bit-identical'}, max abs diff "
+            f"{diff.max().item():.4g}, mean abs diff {diff.mean().item():.4g} = "
+            f"{100 * ratio:.3f} % of mean |raw| {want.float().abs().mean().item():.4g}")
+        if exact and not same:
+            log(f"[{what}] bf16 raw head differs although {label} change no value: cuDNN "
+                "chose other algorithms for the two forwards; held to the 1 % bound instead")
+        if not (same or ratio <= 0.01):
+            raise AssertionError(f"{what} bf16: mean abs diff {100 * ratio:.3f} % > 1 %")
+
+        config32 = config_fn(dtype="float32")
+        _, _, model32 = build(config32)
+        params32, state32, _ = load_weights_auto(config32, model32, rng_seed=0, device="cuda")
+        folded32 = model32.fold(params32, state32)
+        got = model32.apply_folded(folded32, x)
+        want = without(model32, drop).apply_folded(folded32, x)
+        if exact:
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"{what} f32 raw head: not bit-identical without {label} "
+                                     f"(max abs diff {(got - want).abs().max().item():.4g})")
+            log(f"[{what}] f32 raw head vs the forward without {label} (TF32 off): "
+                "bit-identical")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3,
+                                       msg=lambda m: f"{what} f32 raw head without {label}: {m}")
+            log(f"[{what}] f32 raw head vs the forward without {label} (TF32 off): max abs "
+                f"diff {(got - want).abs().max().item():.4g} within rtol/atol 1e-3")
+
+
 def darknet_path():
     from yolojax_torch.config import load_config
 
@@ -310,63 +558,29 @@ def mobilenet_config(tokens: str = MOBILENET_TOKENS, dtype: str = "bfloat16"):
                        [f"model/pallas={tokens}", f"model/dtype={dtype}"])
 
 
-def without_dw_kernels(model):
-    """The same model with ``dwsep dwconv`` removed: the cuDNN path, which
-    runs on the same folded weights (it reads only their ``w`` and ``b``)."""
-    import dataclasses
+def s2d_config(tokens: str = S2D_TOKENS, dtype: str = "bfloat16"):
+    from yolojax_torch.config import load_config
 
-    return dataclasses.replace(model, pallas=model.pallas - {"dwsep", "dwconv"})
+    return load_config([str(ROOT / "config.ini")],
+                       ["model/reorg=s2d", f"model/pallas={tokens}", f"model/dtype={dtype}"])
 
 
-def mobilenet_path():
-    from yolojax_torch.cli.common import build, load_weights_auto
+def tiny_config(tokens: str = TINY_TOKENS, dtype: str = "bfloat16"):
+    from yolojax_torch.config import load_config
 
-    model, params, state, folded, run, launches = drive(
-        mobilenet_config(), "mobilenet", MOBILENET_LAUNCHES)
-    # at the bench density this random head leaves every score under the
-    # threshold; hold the kernels' detections to the plain postprocess where
-    # there are picks too: objectness bias 0 on one more batch
-    from yolojax_torch.ops.postprocess import postprocess_raw
+    return load_config([str(ROOT / "config.ini"), str(ROOT / "config" / "tiny.ini")],
+                       [f"model/pallas={tokens}", f"model/dtype={dtype}"])
 
-    dense = dict(folded, out=dict(folded["out"], b=folded["out"]["b"].clone()))
-    dense["out"]["b"].view(-1, 5 + model.num_classes)[:, 4] = 0.0
-    x = torch.from_numpy(np.random.default_rng(7).uniform(0, 1, (8, SIZE, SIZE, 3))
-                         .astype(np.float32)).cuda()
-    with torch.inference_mode():
-        out = run(dense, x)
-        plain = postprocess_raw(model.apply_folded(dense, x),
-                                torch.as_tensor(model.anchors, device="cuda"),
-                                THRESHOLD, OVERLAP, TOPK)
-        compare(out, plain, model.num_classes, "mobilenet dense batch")
-    picks = out.keep.sum(-1).float()
-    if not picks.max() > 0:
-        raise AssertionError("mobilenet dense batch: no picks to compare")
-    log(f"[mobilenet] dense batch (objectness bias 0): keep matches the plain postprocess; "
-        f"picks per (image, class) mean {picks.mean().item():.2f} max {int(picks.max().item())}")
-    # the raw head against the cuDNN path on the same weights and images
-    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (8, SIZE, SIZE, 3))
-                         .astype(np.float32)).cuda()
-    with torch.inference_mode():
-        got = model.apply_folded(folded, x).float()
-        want = without_dw_kernels(model).apply_folded(folded, x).float()
-        diff = (got - want).abs()
-        ratio = diff.mean().item() / want.abs().mean().item()
-        log(f"[mobilenet] bf16 raw head vs cuDNN path: max abs diff {diff.max().item():.4g}, "
-            f"mean abs diff {diff.mean().item():.4g} = {100 * ratio:.3f} % of mean |raw| "
-            f"{want.abs().mean().item():.4g}")
-        if not (ratio <= 0.01 and torch.isfinite(got).all()):
-            raise AssertionError(f"mobilenet bf16: mean abs diff {100 * ratio:.3f} % > 1 %")
 
-        _, _, model32 = build(mobilenet_config(dtype="float32"))
-        params32, state32, _ = load_weights_auto(mobilenet_config(dtype="float32"), model32,
-                                                 rng_seed=0, device="cuda")
-        folded32 = model32.fold(params32, state32)
-        got = model32.apply_folded(folded32, x)
-        want = without_dw_kernels(model32).apply_folded(folded32, x)
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3,
-                                   msg=lambda m: f"mobilenet f32 raw head vs cuDNN: {m}")
-        log(f"[mobilenet] f32 raw head vs cuDNN path (TF32 off): max abs diff "
-            f"{(got - want).abs().max().item():.4g} within rtol/atol 1e-3")
+DW_TOKENS = {"dwsep", "dwconv"}
+
+
+def kernel_path(what: str, config_fn, expect: dict, drop: set, exact: bool):
+    """A main path through kernels of the forward: drive it, check a dense
+    batch, and hold its raw head to the forward without those kernels."""
+    model, _, _, folded, run, launches = drive(config_fn(), what, expect)
+    dense_batch(model, folded, run, what)
+    raw_vs_without(model, folded, config_fn, drop, what, exact)
     return model, folded, run, launches
 
 
@@ -378,7 +592,7 @@ def darknet_times(model, folded, run, card: str) -> dict:
     rng = np.random.default_rng(3)
     result = {}
     with torch.inference_mode():
-        for b in (8, 128):
+        for b in TIME_BATCHES:
             x = torch.from_numpy(rng.uniform(0, 1, (b, SIZE, SIZE, 3)).astype(np.float32)).cuda()
             raw = model.apply_folded(folded, x)
             t_plain, t_kernel = in_turns(
@@ -405,7 +619,7 @@ def dw_times(card: str) -> dict:
 
     rng = np.random.default_rng(6)
     sums = {}
-    for b in (8, 128):
+    for b in TIME_BATCHES:
         for name, layers in (("dwconv3x3", DWCONV_LAYERS), ("dwsep", DWSEP_LAYERS)):
             total_k = total_p = 0.0
             for count, h, c, cout, stride in layers:
@@ -427,20 +641,76 @@ def dw_times(card: str) -> dict:
     return sums
 
 
-def mobilenet_times(model, folded, run, card: str) -> dict:
+def detect_times(model, folded, run, drop: set, name: str, card: str) -> dict:
+    """detect images/s with the path's kernels and without the forward
+    kernels ``drop``, in turns, at each timed batch."""
     from yolojax_torch.models.inference import Inference
 
-    plain_run = Inference(without_dw_kernels(model)).detect_fn(THRESHOLD, OVERLAP, TOPK)
-    rng = np.random.default_rng(3)
+    plain_run = Inference(without(model, drop)).detect_fn(THRESHOLD, OVERLAP, TOPK)
     result = {}
-    for b in (8, 128):
-        x = torch.from_numpy(rng.uniform(0, 1, (b, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+    for b in TIME_BATCHES:
+        x = seeded_images(3, b)
         t_plain, t_kernel = in_turns(lambda: plain_run(folded, x), lambda: run(folded, x))
         result[b] = {"detect_ms": t_kernel, "img_per_s": b / (t_kernel / 1e3),
                      "plain_detect_ms": t_plain, "plain_img_per_s": b / (t_plain / 1e3)}
-        log(f"[time] {card} | MobileNet detect batch {b} at {SIZE}: with dwsep+dwconv "
-            f"{t_kernel:.3f} ms = {result[b]['img_per_s']:.1f} img/s; cuDNN path "
-            f"{t_plain:.3f} ms = {result[b]['plain_img_per_s']:.1f} img/s (median of 8 / 8)")
+        log(f"[time] {card} | {name} detect batch {b} at {SIZE}: with {sorted(model.pallas)} "
+            f"{t_kernel:.3f} ms = {result[b]['img_per_s']:.1f} img/s; without "
+            f"{' '.join(sorted(drop))} {t_plain:.3f} ms = {result[b]['plain_img_per_s']:.1f} "
+            "img/s (median of 8 / 8)")
+    return result
+
+
+def nms_times(model, folded, card: str) -> dict:
+    """nms_select against its plain version on Darknet-s2d's decoded heads."""
+    from yolojax_torch.kernels.nms import nms_select
+    from yolojax_torch.ops.decode import decode
+    from yolojax_torch.ops.nms import nms_select as nms_plain
+
+    anchors = torch.as_tensor(model.anchors, device="cuda")
+    result = {}
+    with torch.inference_mode():
+        for b in TIME_BATCHES:
+            det = decode(model.apply_folded(folded, seeded_images(3, b)), anchors)
+            args = (det.yx_min[:, None], det.yx_max[:, None], det.conf.transpose(1, 2),
+                    THRESHOLD, OVERLAP, TOPK)
+            t_plain, t_kernel = in_turns(lambda: nms_plain(*args), lambda: nms_select(*args))
+            result[b] = (t_kernel, t_plain)
+            log(f"[time] {card} | nms_select scores {tuple(args[2].shape)}, boxes "
+                f"{tuple(args[0].shape)}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms "
+                "(median of 8 / 8)")
+    return result
+
+
+def layout_times(card: str) -> dict:
+    """maxpool2x2 per routed shape (summed per Darknet and per Tiny forward)
+    and reorg_s2d at c21's shape, kernel against plain version, bf16."""
+    from yolojax_torch.kernels.pool import maxpool2x2, maxpool2x2_plain
+    from yolojax_torch.kernels.reorg import reorg_s2d
+    from yolojax_torch.ops.reorg import reorg_s2d as reorg_plain
+
+    rng = np.random.default_rng(10)
+    x_of = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    result = {}
+    for b in TIME_BATCHES:
+        for model_name, pools in (("Darknet", DARKNET_POOLS), ("Tiny", TINY_POOLS)):
+            total_k = total_p = 0.0
+            for h, c in pools:
+                x = x_of((b, h, h, c))
+                t_plain, t_kernel = in_turns(lambda: maxpool2x2_plain(x), lambda: maxpool2x2(x))
+                total_k, total_p = total_k + t_kernel, total_p + t_plain
+                moved = x.numel() * 2 * 1.25 / 1e9
+                log(f"[time] {card} | maxpool2x2 ({b},{h},{h},{c}) bf16: kernel {t_kernel:.4f} "
+                    f"ms = {moved / (t_kernel / 1e3):.0f} GB/s, plain {t_plain:.4f} ms "
+                    "(median of 8 / 8)")
+            result[("maxpool2x2", model_name, b)] = (total_k, total_p)
+            log(f"[time] {card} | maxpool2x2 per {model_name}-416 forward at batch {b}: kernel "
+                f"{total_k:.4f} ms, plain {total_p:.4f} ms")
+        x = x_of((b, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]))
+        t_plain, t_kernel = in_turns(lambda: reorg_plain(x, 2), lambda: reorg_s2d(x, 2))
+        result[("reorg_s2d", b)] = (t_kernel, t_plain)
+        log(f"[time] {card} | reorg_s2d {tuple(x.shape)} bf16: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.4f} ms (median of 8 / 8)")
     return result
 
 
@@ -463,7 +733,7 @@ def profile(card: str) -> None:
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start-up
         Inference(model).detect_fn(THRESHOLD, OVERLAP, TOPK)(folded, x)
         torch.cuda.synchronize()
-    for what, m in (("dwsep+dwconv", model), ("cuDNN path", without_dw_kernels(model))):
+    for what, m in (("dwsep+dwconv", model), ("cuDNN path", without(model, DW_TOKENS))):
         run = Inference(m).detect_fn(THRESHOLD, OVERLAP, TOPK)
         for _ in range(3):
             run(folded, x)
@@ -499,34 +769,53 @@ def main() -> None:
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; see --help in the source")
-    fused_err = fused_vs_plain()
-    dw_err = dw_vs_plain()
+    t0 = time.perf_counter()
+    err = {"postprocess_fused": fused_vs_plain(), **dw_vs_plain(), "nms_select": nms_vs_plain(),
+           **layout_vs_plain()}
     # each model's times right after its path, so Darknet's stay comparable
     # with runs that drive Darknet alone
     dark_model, _, _, dark_folded, dark_run, dark_launches = darknet_path()
     dark_t = darknet_times(dark_model, dark_folded, dark_run, card)
     del dark_model, dark_folded, dark_run
-    mob_model, mob_folded, mob_run, mob_launches = mobilenet_path()
+    mob_model, mob_folded, mob_run, mob_launches = kernel_path(
+        "mobilenet", mobilenet_config, MOBILENET_LAUNCHES, DW_TOKENS, exact=False)
     dw_t = dw_times(card)
-    mobilenet_times(mob_model, mob_folded, mob_run, card)
-    # launches: from the main paths' runs (Darknet's and MobileNet's, 3 batches
-    # each); ms / plain_ms: batch 8 (fused: on Darknet's raw head; dwconv3x3 and
-    # dwsep: summed over one MobileNet-416 forward's routed layers)
+    detect_times(mob_model, mob_folded, mob_run, DW_TOKENS, "MobileNet", card)
+    del mob_model, mob_folded, mob_run
+    s2d_model, s2d_folded, s2d_run, s2d_launches = kernel_path(
+        "darknet-s2d", s2d_config, S2D_LAUNCHES, {"pool", "reorg"}, exact=True)
+    nms_t = nms_times(s2d_model, s2d_folded, card)
+    detect_times(s2d_model, s2d_folded, s2d_run, {"pool", "reorg"}, "Darknet-s2d", card)
+    del s2d_model, s2d_folded, s2d_run
+    tiny_model, tiny_folded, tiny_run, tiny_launches = kernel_path(
+        "tiny", tiny_config, TINY_LAUNCHES, {"pool"}, exact=True)
+    detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
+    del tiny_model, tiny_folded, tiny_run
+    layout_t = layout_times(card)
+    log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
+
+    # launches: summed over the four main paths' runs (3 batches each); ms /
+    # plain_ms at batch 8: fused on Darknet's raw head, nms_select on
+    # Darknet-s2d's decoded head, dwconv3x3 and dwsep summed over one
+    # MobileNet-416 forward's routed layers, maxpool2x2 over one Darknet-416
+    # forward's routed pools, reorg_s2d at c21's shape
+    paths = (dark_launches, mob_launches, s2d_launches, tiny_launches)
+    b = TIME_BATCHES[0]
+    times = {"postprocess_fused": (dark_t[b]["kernel_ms"], dark_t[b]["plain_ms"]),
+             "dwconv3x3": dw_t[("dwconv3x3", b)], "dwsep": dw_t[("dwsep", b)],
+             "nms_select": nms_t[b], "maxpool2x2": layout_t[("maxpool2x2", "Darknet", b)],
+             "reorg_s2d": layout_t[("reorg_s2d", b)]}
+    sources = {"postprocess_fused": ("postprocess_fused.cu", "yolojax/kernels/nms.py:247"),
+               "dwconv3x3": ("dwconv3x3.cu", "yolojax/kernels/dwconv.py:65"),
+               "dwsep": ("dwsep.cu", "yolojax/kernels/dwsep.py:104"),
+               "nms_select": ("nms_select.cu", "yolojax/kernels/nms.py:118"),
+               "maxpool2x2": ("maxpool2x2.cu", "yolojax/kernels/pool.py:40"),
+               "reorg_s2d": ("reorg_s2d.cu", "yolojax/kernels/reorg.py:38")}
     print(json.dumps({"kernels": [
-        {"name": "postprocess_fused", "route": "cuda",
-         "source": "yolojax_torch/csrc/postprocess_fused.cu",
-         "replaces": "yolojax/kernels/nms.py:247",
-         "launches": dark_launches["postprocess_fused"] + mob_launches["postprocess_fused"],
-         "max_abs_err": fused_err, "ms": dark_t[8]["kernel_ms"], "plain_ms": dark_t[8]["plain_ms"]},
-        {"name": "dwconv3x3", "route": "cuda", "source": "yolojax_torch/csrc/dwconv3x3.cu",
-         "replaces": "yolojax/kernels/dwconv.py:65", "launches": mob_launches["dwconv3x3"],
-         "max_abs_err": dw_err["dwconv3x3"], "ms": dw_t[("dwconv3x3", 8)][0],
-         "plain_ms": dw_t[("dwconv3x3", 8)][1]},
-        {"name": "dwsep", "route": "cuda", "source": "yolojax_torch/csrc/dwsep.cu",
-         "replaces": "yolojax/kernels/dwsep.py:104", "launches": mob_launches["dwsep"],
-         "max_abs_err": dw_err["dwsep"], "ms": dw_t[("dwsep", 8)][0],
-         "plain_ms": dw_t[("dwsep", 8)][1]},
-    ]}), flush=True)
+        {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
+         "replaces": sources[k][1], "launches": sum(p[k] for p in paths),
+         "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1]}
+        for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

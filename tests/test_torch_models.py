@@ -158,7 +158,8 @@ def test_config_resolves_to_the_port():
     assert type(model) is Darknet and model.dtype == torch.bfloat16
     assert model.pallas == frozenset({"nms", "fusedpost"}) and model.reorg_order == "darknet"
     assert kernel_active("fusedpost", model.pallas)
-    assert not kernel_active("nms", model.pallas)      # not ported: plain path
+    assert kernel_active("nms", model.pallas)          # ported; fusedpost takes precedence
+    assert not kernel_active("pool", model.pallas) and not kernel_active("reorg", model.pallas)
     assert parse_attr("yolojax.data.transform.stretch").__module__ == \
         "yolojax_torch.data.transform"
     assert torch_dtype("float32") is torch.float32
@@ -168,7 +169,8 @@ def test_config_resolves_to_the_port():
 
 @pytest.mark.parametrize("path,error,missing", [
     ("yolojax.utils.train.adam", ModuleNotFoundError, "yolojax_torch.utils.train"),
-    ("yolojax.models.darknet.Tiny", AttributeError, "yolojax_torch.models.darknet.Tiny"),
+    ("yolojax.data.transform.RandomCrop", AttributeError,
+     "yolojax_torch.data.transform.RandomCrop"),
 ])
 def test_unported_config_values_name_the_missing_part(path, error, missing):
     with pytest.raises(error, match=missing):

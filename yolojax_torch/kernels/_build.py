@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is one shared library with a plain C interface.  It is
 compiled for ``sm_90a`` into ``build/yolojax_torch/<name>-<hash>.so``, where
-the hash covers the source and the flags, so an edited source builds anew.
+the hash covers the source, every ``*.cuh`` header beside it and the flags,
+so an edited source or shared header builds anew.
 No fast-math and ``--fmad=false``: the compiler contracts no multiply and add
 into one rounding that the source did not ask for.  ``-Xptxas=-v``'s report
 (registers, spills) is kept beside the library as ``.log``.
@@ -21,7 +22,8 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all", "load", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build", "build_all", "load",
+           "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolojax_torch"
@@ -41,11 +43,20 @@ def nvcc() -> str:
     return path
 
 
+def library_path(source: Path) -> Path:
+    """Where the build of ``source`` lives: named by a hash of the source, the
+    headers beside it (which it may include) and the flags."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
 def build(source: Path) -> Path:
-    """Compile ``source`` if no build for this source + flags exists; returns
-    the library's path."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    """Compile ``source`` if no build for this source, its headers and the
+    flags exists; returns the library's path."""
+    lib = library_path(source)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -31,7 +31,7 @@ __all__ = ["ChannelResolver", "LayerDef", "ModelBase", "build_model", "kernel_ac
            "PORTED_KERNELS"]
 
 # ``[model] pallas`` tokens whose TPU kernel has a CUDA counterpart in the port
-PORTED_KERNELS = frozenset({"fusedpost", "dwsep", "dwconv"})
+PORTED_KERNELS = frozenset({"fusedpost", "nms", "dwsep", "dwconv", "pool", "reorg"})
 
 
 def kernel_active(which: str, enabled: frozenset) -> bool:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BNConfig", "fold_bn", "leaky_relu", "bias_leaky", "conv_bias_leaky"]
+__all__ = ["BNConfig", "fold_bn", "leaky_relu", "bias_leaky", "conv_bias_leaky", "max_pool"]
 
 
 def leaky_relu(x, slope=0.1):
@@ -84,3 +84,16 @@ def conv_bias_leaky(x, w, b, *, stride: int = 1, groups: int = 1, act: bool = Tr
     :func:`bias_leaky`.  Padding is symmetric ``k//2``."""
     y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=groups)
     return bias_leaky(y, b, act)
+
+
+def max_pool(x, size: int = 2, stride: int | None = None):
+    """Max pool of an NCHW ``x`` with darknet semantics, as
+    ``yolojax/models/blocks.py::max_pool``: SAME for a stride-1 pool (Tiny's
+    tail pool: -inf padding, ``(size - 1) // 2`` before and the rest after,
+    so H and W stay), VALID otherwise."""
+    stride = size if stride is None else stride
+    if stride == 1:
+        lo = (size - 1) // 2
+        hi = size - 1 - lo
+        x = F.pad(x, (lo, hi, lo, hi), value=float("-inf"))
+    return F.max_pool2d(x, size, stride)

@@ -1,13 +1,18 @@
-"""Darknet-19 YOLOv2 — counterpart of ``yolojax/models/darknet.py``.
+"""Darknet-19 YOLOv2 and Tiny-Darknet — counterpart of
+``yolojax/models/darknet.py``.
 
-The same plan table as the JAX package (conv order = darknet ``.weights``
-order): the 19-conv trunk, the three-conv head, and the passthrough — the
-stride-16 feature through a 1×1 conv, darknet-order reorg, concatenated as
-``[reorg, top]`` before the last 3×3 conv and the linear 1×1 head conv.
-Tiny-Darknet is not ported yet.
+The same plan tables as the JAX package (conv order = darknet ``.weights``
+order):
 
-``_PlanModel`` is the base of every plan-driven model (``Darknet`` here,
-``MobileNet`` in ``mobilenet.py``), as in the JAX package.
+* ``Darknet`` — the 19-conv trunk, the three-conv head, and the passthrough:
+  the stride-16 feature through a 1×1 conv, reorg (``[model] reorg`` order),
+  concatenated as ``[reorg, top]`` before the last 3×3 conv and the linear
+  1×1 head conv;
+* ``Tiny`` — tiny-yolo-voc: 9 convs with max pools, the last of them the
+  stride-1 SAME pool after conv6, and no passthrough.
+
+``_PlanModel`` is the base of every plan-driven model (``Darknet`` and
+``Tiny`` here, ``MobileNet`` in ``mobilenet.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 from . import LayerDef, ModelBase
 from .engine import add_kernel_weights, fold_plan, plan_convs, resolve_in_channels, run_plan
 
-__all__ = ["Darknet"]
+__all__ = ["Darknet", "Tiny"]
 
 
 @dataclass
@@ -98,5 +103,25 @@ class Darknet(_PlanModel):
             c("c19", 1024, 3), c("c20", 1024, 3), ("mark", "top"),
             ("load", "s16"), c("c21", 64, 1), ("reorg", 2), ("concat", "top"),
             c("c22", 1024, 3),
+            ("conv", LayerDef("out", self.out_channels, 1, bn=False, act=False)),
+        ]
+
+
+@dataclass
+class Tiny(_PlanModel):
+    """Tiny-Darknet (tiny-yolo-voc): 9 convs, no passthrough."""
+
+    def _build_plan(self):
+        w = self.width
+        c = lambda name, out, k: ("conv", LayerDef(name, w(name, out), k))
+        pool = ("pool", 2, 2)
+        return [
+            c("c1", 16, 3), pool,
+            c("c2", 32, 3), pool,
+            c("c3", 64, 3), pool,
+            c("c4", 128, 3), pool,
+            c("c5", 256, 3), pool,
+            c("c6", 512, 3), ("pool", 2, 1),
+            c("c7", 1024, 3), c("c8", 1024, 3),
             ("conv", LayerDef("out", self.out_channels, 1, bn=False, act=False)),
         ]

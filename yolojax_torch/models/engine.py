@@ -3,7 +3,8 @@
 A model is an ordered plan of ops over one running tensor plus named slots:
 
     ("conv", LayerDef)        folded conv + bias (+ leaky) block
-    ("pool", size, stride)    VALID max pool (Darknet's 2×2/2)
+    ("pool", size, stride)    max pool: SAME at stride 1 (Tiny's tail pool),
+                              VALID otherwise (``blocks.max_pool``)
     ("mark", key)             save the running tensor into slot ``key``
     ("load", key)             replace the running tensor with slot ``key``
     ("reorg", stride)         passthrough space-to-depth (ops/reorg.py)
@@ -13,23 +14,28 @@ The running tensor is NCHW in ``channels_last`` memory (NHWC bytes), which is
 what cuDNN's bf16 convolutions want; images come in NHWC, so the entry
 ``permute`` is a view.  Training (``train=True``) is not ported yet.
 
-Kernel routing follows the JAX engine (``yolojax/models/engine.py:86-135``):
+Kernel routing follows the JAX engine (``yolojax/models/engine.py:86-164``):
 with ``dwsep`` selected, a depthwise 3×3 conv and the 1×1 conv after it run
 as one fused kernel; with ``dwconv`` selected, a depthwise 3×3 conv that did
-not pair runs in the depthwise kernel.  The kernels take NHWC tensors, which
-are the running tensor's own bytes, so both permutes around a call are views.
+not pair runs in the depthwise kernel; with ``pool`` selected, a 2×2/2 pool
+of lane-aligned channels and even H, W runs in the pool kernel; with
+``reorg`` selected and the s2d order configured, the reorg runs in the s2d
+kernel (the darknet order has no kernel).  The kernels take NHWC tensors,
+which are the running tensor's own bytes, so both permutes around a call are
+views.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels import dwconv as dwconv_k
 from ..kernels import dwsep as dwsep_k
+from ..kernels import pool as pool_k
+from ..kernels import reorg as reorg_k
 from ..ops.reorg import reorg
 from . import LayerDef, kernel_active
-from .blocks import BNConfig, conv_bias_leaky, fold_bn
+from .blocks import BNConfig, conv_bias_leaky, fold_bn, max_pool
 
 __all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights"]
 
@@ -90,6 +96,15 @@ def _dwsep_pair(plan, i, height: int) -> LayerDef | None:
     return _pointwise_after(plan, i)
 
 
+def _pool_routable(x, size: int, stride: int) -> bool:
+    """A pool the pool kernel takes (``engine.py:146-148``): 2×2/2, channels
+    a multiple of 128, H and W even.  ``x`` is NCHW-shaped, so C is
+    ``x.shape[1]``, H ``x.shape[2]`` and W ``x.shape[3]`` (the JAX engine
+    reads ``x.shape[-1]``, ``x.shape[1]`` and ``x.shape[2]`` of an NHWC array)."""
+    return (size == 2 and stride == 2 and x.shape[1] % 128 == 0
+            and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
+
 def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat16,
              reorg_order: str = "darknet", pallas: frozenset = frozenset()):
     """Execute the plan on folded ``{w, b}`` params.
@@ -103,6 +118,8 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
         raise NotImplementedError("training forward is not ported yet")
     use_dw_k = kernel_active("dwconv", pallas)
     use_dwsep = kernel_active("dwsep", pallas)
+    use_pool_k = kernel_active("pool", pallas)
+    use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
     slots = {}
     x = x.to(compute_dtype).permute(0, 3, 1, 2)
     skip = -1
@@ -128,13 +145,19 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
                 x = conv_bias_leaky(x, p["w"], p["b"], stride=d.stride, groups=d.groups,
                                     act=d.act)
         elif kind == "pool":
-            x = F.max_pool2d(x, op[1], op[2])
+            if use_pool_k and _pool_routable(x, op[1], op[2]):
+                x = pool_k.maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            else:
+                x = max_pool(x, op[1], op[2])
         elif kind == "mark":
             slots[op[1]] = x
         elif kind == "load":
             x = slots[op[1]]
         elif kind == "reorg":
-            x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
+            if use_reorg_k:
+                x = reorg_k.reorg_s2d(x.permute(0, 2, 3, 1), op[1]).permute(0, 3, 1, 2)
+            else:
+                x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
         elif kind == "concat":
             x = torch.cat([x, slots[op[1]]], dim=1).contiguous(
                 memory_format=torch.channels_last)

@@ -40,11 +40,13 @@ class Inference:
         """(folded, images) → PostProcessed.
 
         With ``fusedpost`` selected (the default config) the raw head goes to
-        the fused decode+NMS kernel, which takes precedence over ``nms``;
-        otherwise decode → plain per-class NMS (the ``nms`` kernel is not
-        ported yet).
+        the fused decode+NMS kernel, which takes precedence over ``nms``; with
+        ``nms`` alone, decode → the batched NMS kernel
+        (``kernels/nms.py::postprocess_nms``); with neither, decode → plain
+        per-class NMS.
         """
         use_fused = kernel_active("fusedpost", self.model.pallas)
+        use_nms = kernel_active("nms", self.model.pallas)
 
         @torch.inference_mode()
         def run(folded, images) -> PostProcessed:
@@ -54,6 +56,11 @@ class Inference:
                 raw = self.model.apply_folded(folded, images)
                 return postprocess_fused(raw, self._anchors(raw.device), threshold,
                                          overlap, topk)
-            return postprocess(self(folded, images), threshold, overlap, topk)
+            det = self(folded, images)
+            if use_nms:
+                from ..kernels.nms import postprocess_nms
+
+                return postprocess_nms(det, threshold, overlap, topk)
+            return postprocess(det, threshold, overlap, topk)
 
         return run

@@ -4,7 +4,8 @@
 The JAX package's ``vmap(classes) ∘ vmap(batch)`` becomes the leading
 ``(B, C)`` dims of one batched :func:`~yolojax_torch.ops.nms.nms_select`.
 This is also the plain version of the fused decode+NMS CUDA kernel
-(``kernels/postprocess_fused.py``).
+(``kernels/postprocess_fused.py``) and of the batched NMS kernel's
+postprocess (``kernels/nms.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +30,13 @@ class PostProcessed(NamedTuple):
     keep: torch.Tensor    # (B, C, K) bool — survived threshold + NMS
 
 
-def postprocess(det: Detections, threshold: float, overlap: float, topk: int) -> PostProcessed:
-    """Per-class threshold + NMS on decoded detections (B, N, ·)."""
+def postprocess(det: Detections, threshold: float, overlap: float, topk: int,
+                select=nms_select) -> PostProcessed:
+    """Per-class threshold + NMS on decoded detections (B, N, ·).  ``select``
+    is the batched NMS: the plain one, or the kernel's wrapper
+    ``kernels/nms.py::nms_select``, which ``postprocess_nms`` passes."""
     yx_min, yx_max = det.yx_min[:, None], det.yx_max[:, None]     # (B, 1, N, 2)
-    idx, conf, keep = nms_select(yx_min, yx_max, det.conf.transpose(1, 2),
-                                 threshold, overlap, topk)
+    idx, conf, keep = select(yx_min, yx_max, det.conf.transpose(1, 2), threshold, overlap, topk)
     take = lambda v: torch.take_along_dim(v, idx.long()[..., None], dim=2)
     return PostProcessed(take(yx_min), take(yx_max), conf, keep)
 
