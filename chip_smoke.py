@@ -10,14 +10,21 @@ Phases, each of which passes or raises (any failure exits non-zero):
 1. device — a CUDA device must be present; prints its name and
    ``nvidia-smi``'s name and power limit;
 2. build — compiles the six kernels of ``yolojax_torch/csrc`` at once, one
-   ``nvcc`` each, and prints each one's registers and spills;
+   ``nvcc`` each, prints each one's registers and spills, and requires
+   HGMMA (wgmma) in the SASS of dwsep's bf16 kernel (``cuobjdump``);
+   then the host time of one ``maxpool2x2`` call at Tiny's batch-8 pool4
+   shape, part by part (``time.perf_counter_ns``, median of 7 rounds of 300
+   calls), beside
+   ``F.max_pool2d``;
 3. kernels against their plain versions on the card:
    * fused decode+NMS — raw heads from numpy seeds, f32 and bf16, four
      geometries, bench and saturated densities: ``keep`` and pick order
      identical, conf rtol 1e-5 (2e-5 at C=80), corners atol 1e-5;
    * dwconv3x3 and dwsep — MobileNet-416's routed shapes at batch 8, an odd
-     spatial size and channel counts that are not multiples of 128, f32 and
-     bf16, stride 1 and 2: f32 rtol/atol 1e-4 (the JAX tests' bound), bf16
+     spatial size, channel counts that are not multiples of 128 (and, for
+     dwsep, C = 36: element loads), a last pixel tile that is not full
+     (3, 13, 13, 1024) and batch 128, f32 and bf16, stride 1 and 2: f32
+     rtol/atol 1e-4 (the JAX tests' bound), bf16
      rtol/atol 1e-2 (about one bf16 ulp: the plain version sums in cuDNN's
      order); prints the share of output elements that are not bit-identical;
    * nms_select — the four geometries' decoded heads, bench and saturated
@@ -53,13 +60,19 @@ Phases, each of which passes or raises (any failure exits non-zero):
    batch, a (B,13,13,125) raw head, the dense batch, the raw head against
    the forward without ``pool`` as for Darknet-s2d, ``detect_image``;
 8. times (each model's right after its path) — CUDA events, warm-up, median
-   of 7 (or of 8 taken in turns): each kernel against its plain version at
-   batch 8 and 128 (fused and nms_select on Darknet's raw and decoded heads,
-   each routed depthwise and pool shape, the reorg at c21's shape), and
-   detect images/s of each path, with and without its forward kernels.
+   of 7 (or of 8 taken in turns): each kernel against its plain version and,
+   where one PyTorch call computes the TPU kernel's function, that call
+   (``F.conv2d`` with groups for dwconv3x3, ``F.max_pool2d``), at batch 8
+   and 128 (fused and nms_select on Darknet's raw and decoded heads, each
+   routed depthwise and pool shape, the reorg at c21's shape), each beside
+   its bound (bytes over 3.35 TB/s or operations over the peak of their
+   type, from this run's inputs; dwsep's layers also as TFLOP/s), and detect
+   images/s of each path, with and without its forward kernels.
 
-Prints a ``{"kernels": [...]}`` JSON line, then, last, ``{"ok": true, "device":
-{...}}``.  Times are information, not a benchmark.
+Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
+paths, max abs err, ms, plain_ms, bound_ms, bound_by and library_ms at batch
+8, null where no PyTorch call computes the function), then, last, ``{"ok":
+true, "device": {...}}``.  Times are information, not a benchmark.
 """
 
 from __future__ import annotations
@@ -109,14 +122,51 @@ TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=2)
 # kernel-vs-plain cases beyond the routed shapes: odd spatial sizes, C % 128 != 0
 DWCONV_EXTRA = [(8, 27, 128, 128, 2), (8, 13, 1024, 1024, 2), (2, 13, 72, 72, 1),
                 (2, 13, 36, 36, 2)]
-DWSEP_EXTRA = [(8, 27, 64, 96, 2), (8, 13, 512, 1024, 2), (2, 13, 72, 40, 1)]
+DWSEP_EXTRA = [(8, 27, 64, 96, 2), (8, 13, 512, 1024, 2), (2, 13, 72, 40, 1), (2, 13, 36, 40, 1),
+               (3, 13, 1024, 1024, 1), (128, 26, 512, 512, 1)]
 POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3)]
 REORG_EXTRA = [(2, 26, 26, 3), (2, 26, 26, 72), (2, 2, 2, 64), (2, 2, 2, 3)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# an H100 SXM's published peaks: device memory
+# bytes/s, and flop/s by operand type (bf16 on the tensor cores, f32 on the
+# CUDA cores)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
+HOST_ROUNDS, HOST_CALLS = 7, 300   # host-time measurement: median of rounds of calls
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Bound:
+    """The least time the card could take for a sum of calls: per call the
+    larger of its bytes over the memory rate and its operations over the
+    peak rate of their type (types run on separate units, so the slowest
+    type counts)."""
+
+    def __init__(self):
+        self.ms = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, nbytes: float, flops: dict | None = None, count: int = 1) -> "Bound":
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = max((n / PEAK_FLOPS[kind] * 1e3 for kind, n in (flops or {}).items()),
+                    default=0.0)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        self.ms[by] += count * max(t_bytes, t_ops)
+        return self
+
+    @property
+    def total(self) -> float:
+        return self.ms["bytes"] + self.ms["operations"]
+
+    @property
+    def by(self) -> str:
+        return max(self.ms, key=self.ms.get)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_device() -> tuple[str, str]:
@@ -145,8 +195,25 @@ def build_kernels() -> None:
         report = lib.with_suffix(".log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"[build] ptxas {lib.name.split('-')[0]}: {line.strip()}")
+    # the bf16 dwsep kernel must run its product on the tensor cores: wgmma is
+    # HGMMA in the SASS
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        log(f"[build] no {cuobjdump}: the SASS of dwsep is not inspected")
+        return
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(libs[2])], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    per_kernel, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and name:
+            per_kernel[name] = per_kernel.get(name, 0) + 1
+    log(f"[build] dwsep SASS: HGMMA instructions per function {per_kernel}")
+    if not any("wgmma" in k for k in per_kernel):
+        raise AssertionError("dwsep: the bf16 kernel's SASS has no HGMMA")
 
 
 def compare(got, want, c: int, what: str, det=None) -> float:
@@ -374,14 +441,14 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> list[float]:
     return times
 
 
-def in_turns(plain, kernel) -> tuple[float, float]:
-    """Medians of (plain, kernel) timed in turns on one card: plain, kernel,
-    kernel, plain."""
+def in_turns(*fns) -> tuple[float, ...]:
+    """Medians of ``fns`` timed in turns on one card, forth and back: for
+    (plain, kernel) plain, kernel, kernel, plain; 8 runs each."""
     half = REPS // 2 + 1
-    t_plain = cuda_ms(plain, half)
-    t_kernel = cuda_ms(kernel, half) + cuda_ms(kernel, half)
-    t_plain += cuda_ms(plain, half)
-    return float(np.median(t_plain)), float(np.median(t_kernel))
+    times = [cuda_ms(fn, half) for fn in fns]
+    for i in reversed(range(len(fns))):
+        times[i] += cuda_ms(fns[i], half)
+    return tuple(float(np.median(t)) for t in times)
 
 
 def launch_counters():
@@ -598,13 +665,23 @@ def darknet_times(model, folded, run, card: str) -> dict:
             t_plain, t_kernel = in_turns(
                 lambda: postprocess_raw(raw, anchors, THRESHOLD, OVERLAP, TOPK),
                 lambda: postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK))
+            out = postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK)
+            # bytes: the head and anchors in, the PostProcessed out; operations:
+            # the decode (~3 per class score and 20 per candidate) and, for
+            # this head's picks, an argmax and an IoU (~16) per candidate
+            n, c = raw.shape[1] * raw.shape[2] * len(model.anchors), model.num_classes
+            ops = b * n * (3 * c + 20) + int(out.keep.sum()) * n * 16
+            bound = Bound().add(nbytes(raw, anchors, *out), {"f32": ops})
             t_fwd = float(np.median(cuda_ms(lambda: model.apply_folded(folded, x))))
             t_detect = cuda_ms(lambda: run(folded, x))
             med = float(np.median(t_detect))
             result[b] = {"kernel_ms": t_kernel, "plain_ms": t_plain, "forward_ms": t_fwd,
-                         "detect_ms": med, "img_per_s": b / (med / 1e3)}
+                         "detect_ms": med, "img_per_s": b / (med / 1e3),
+                         "bound_ms": bound.total, "bound_by": bound.by}
             log(f"[time] {card} | raw {tuple(raw.shape)} {raw.dtype}: fused kernel "
-                f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms (median of 8 / 8)")
+                f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms (median of 8 / 8); bound "
+                f"{bound.total:.5f} ms by {bound.by}, {int(out.keep.sum())} picks; no "
+                "PyTorch call computes it")
             log(f"[time] {card} | Darknet detect batch {b} at {SIZE}: {med:.3f} ms = "
                 f"{result[b]['img_per_s']:.1f} img/s (forward alone {t_fwd:.3f} ms; "
                 f"median of {REPS}); all runs {[round(t, 3) for t in t_detect]}")
@@ -612,8 +689,11 @@ def darknet_times(model, folded, run, card: str) -> dict:
 
 
 def dw_times(card: str) -> dict:
-    """Each routed layer shape, kernel against plain version, bf16; returns
-    per batch the sums over one forward's routed layers."""
+    """Each routed layer shape, kernel against plain version and (dwconv3x3)
+    the library's grouped conv, bf16, in turns; returns per (name, batch)
+    the sums over one forward's routed layers, with their bound."""
+    import torch.nn.functional as F
+
     from yolojax_torch.kernels.dwconv import dwconv3x3, dwconv3x3_plain
     from yolojax_torch.kernels.dwsep import dwsep, dwsep_plain
 
@@ -621,23 +701,49 @@ def dw_times(card: str) -> dict:
     sums = {}
     for b in TIME_BATCHES:
         for name, layers in (("dwconv3x3", DWCONV_LAYERS), ("dwsep", DWSEP_LAYERS)):
-            total_k = total_p = 0.0
+            total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+            bound = Bound()
             for count, h, c, cout, stride in layers:
                 x, wd, bd, wp, bp = dw_inputs(rng, b, h, c, cout, torch.bfloat16)
+                ho = (h - 1) // stride + 1
+                pixels = b * ho * ho
+                dw_flops = 2 * 9 * pixels * c
                 if name == "dwconv3x3":
-                    plain = lambda: dwconv3x3_plain(x, wd, bd, stride)
-                    kernel = lambda: dwconv3x3(x, wd, bd, stride)
+                    # the TPU kernel's function: the grouped conv, no epilogue
+                    xc, weight = x.permute(0, 3, 1, 2), wd.permute(2, 0, 1).unsqueeze(1)
+                    t_plain, t_kernel, t_lib = in_turns(
+                        lambda: dwconv3x3_plain(x, wd, bd, stride),
+                        lambda: dwconv3x3(x, wd, bd, stride),
+                        lambda: F.conv2d(xc, weight, stride=stride, padding=1, groups=c))
+                    work = (nbytes(x, wd, bd) + pixels * c * 2, {"f32": dw_flops})
+                    flops = dw_flops
                 else:
-                    plain = lambda: dwsep_plain(x, wd, bd, wp, bp, stride)
-                    kernel = lambda: dwsep(x, wd, bd, wp, bp, stride)
-                t_plain, t_kernel = in_turns(plain, kernel)
-                total_k, total_p = total_k + count * t_kernel, total_p + count * t_plain
+                    wp_t = wp.t().contiguous()
+                    t_plain, t_kernel = in_turns(
+                        lambda: dwsep_plain(x, wd, bd, wp, bp, stride),
+                        lambda: dwsep(x, wd, bd, wp, bp, stride, wp_t))
+                    t_lib = None
+                    flops = 2 * pixels * c * cout
+                    work = (nbytes(x, wd, bd, wp, bp) + pixels * cout * 2,
+                            {"bf16 tensor": flops, "f32": dw_flops})
+                layer = Bound().add(*work)
+                bound.add(*work, count=count)
+                total["ms"] += count * t_kernel
+                total["plain_ms"] += count * t_plain
+                total["library_ms"] = None if t_lib is None else total["library_ms"] + count * t_lib
+                lib = "" if t_lib is None else f", library {t_lib:.4f} ms"
                 log(f"[time] {card} | {name} ({b},{h},{h},{c})->{cout} s{stride} bf16: kernel "
-                    f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms (median of 8 / 8; "
+                    f"{t_kernel:.4f} ms = {flops / t_kernel / 1e9:.1f} TFLOP/s, "
+                    f"{100 * layer.total / t_kernel:.1f} % of its bound {layer.total:.4f} ms "
+                    f"({layer.by}); plain {t_plain:.4f} ms{lib} (median of 8 / 8; "
                     f"{count}x per forward)")
-            sums[(name, b)] = (total_k, total_p)
+            sums[(name, b)] = dict(total, bound_ms=bound.total, bound_by=bound.by)
+            lib = ("" if total["library_ms"] is None
+                   else f", library {total['library_ms']:.4f} ms")
             log(f"[time] {card} | {name} per MobileNet-416 forward at batch {b}: kernel "
-                f"{total_k:.4f} ms, plain {total_p:.4f} ms")
+                f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms{lib}, bound "
+                f"{bound.total:.4f} ms ({bound.by}) = {100 * bound.total / total['ms']:.1f} % "
+                "of the kernel's time")
     return sums
 
 
@@ -674,16 +780,27 @@ def nms_times(model, folded, card: str) -> dict:
             args = (det.yx_min[:, None], det.yx_max[:, None], det.conf.transpose(1, 2),
                     THRESHOLD, OVERLAP, TOPK)
             t_plain, t_kernel = in_turns(lambda: nms_plain(*args), lambda: nms_select(*args))
-            result[b] = (t_kernel, t_plain)
+            # bytes: boxes and scores in, idx, conf and valid out; operations:
+            # an argmax and an IoU (~16) per candidate for each of this
+            # head's picks
+            picks = nms_select(*args)
+            n = args[2].shape[-1]
+            bound = Bound().add(nbytes(*args[:3], *picks), {"f32": int(picks[2].sum()) * n * 16})
+            result[b] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": None,
+                         "bound_ms": bound.total, "bound_by": bound.by}
             log(f"[time] {card} | nms_select scores {tuple(args[2].shape)}, boxes "
                 f"{tuple(args[0].shape)}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms "
-                "(median of 8 / 8)")
+                f"(median of 8 / 8); bound {bound.total:.5f} ms by {bound.by}, "
+                f"{int(picks[2].sum())} picks; no PyTorch call computes it")
     return result
 
 
 def layout_times(card: str) -> dict:
     """maxpool2x2 per routed shape (summed per Darknet and per Tiny forward)
-    and reorg_s2d at c21's shape, kernel against plain version, bf16."""
+    against its plain version and ``F.max_pool2d``, and reorg_s2d at c21's
+    shape against its plain version, bf16, in turns."""
+    import torch.nn.functional as F
+
     from yolojax_torch.kernels.pool import maxpool2x2, maxpool2x2_plain
     from yolojax_torch.kernels.reorg import reorg_s2d
     from yolojax_torch.ops.reorg import reorg_s2d as reorg_plain
@@ -694,23 +811,111 @@ def layout_times(card: str) -> dict:
     result = {}
     for b in TIME_BATCHES:
         for model_name, pools in (("Darknet", DARKNET_POOLS), ("Tiny", TINY_POOLS)):
-            total_k = total_p = 0.0
+            total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+            bound = Bound()
             for h, c in pools:
                 x = x_of((b, h, h, c))
-                t_plain, t_kernel = in_turns(lambda: maxpool2x2_plain(x), lambda: maxpool2x2(x))
-                total_k, total_p = total_k + t_kernel, total_p + t_plain
-                moved = x.numel() * 2 * 1.25 / 1e9
+                xc = x.permute(0, 3, 1, 2)
+                t_plain, t_kernel, t_lib = in_turns(lambda: maxpool2x2_plain(x),
+                                                    lambda: maxpool2x2(x),
+                                                    lambda: F.max_pool2d(xc, 2, 2))
+                for key, t in zip(total, (t_kernel, t_plain, t_lib)):
+                    total[key] += t
+                # three compares per output element
+                work = (nbytes(x) * 5 // 4, {"f32": 3 * x.numel() // 4})
+                layer = Bound().add(*work)
+                bound.add(*work)
                 log(f"[time] {card} | maxpool2x2 ({b},{h},{h},{c}) bf16: kernel {t_kernel:.4f} "
-                    f"ms = {moved / (t_kernel / 1e3):.0f} GB/s, plain {t_plain:.4f} ms "
-                    "(median of 8 / 8)")
-            result[("maxpool2x2", model_name, b)] = (total_k, total_p)
+                    f"ms = {nbytes(x) * 1.25 / 1e9 / (t_kernel / 1e3):.0f} GB/s, "
+                    f"{100 * layer.total / t_kernel:.1f} % of its bound {layer.total:.4f} ms; "
+                    f"plain {t_plain:.4f} ms, F.max_pool2d {t_lib:.4f} ms (median of 8 / 8)")
+            result[("maxpool2x2", model_name, b)] = dict(total, bound_ms=bound.total,
+                                                         bound_by=bound.by)
             log(f"[time] {card} | maxpool2x2 per {model_name}-416 forward at batch {b}: kernel "
-                f"{total_k:.4f} ms, plain {total_p:.4f} ms")
+                f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, F.max_pool2d "
+                f"{total['library_ms']:.4f} ms, bound {bound.total:.4f} ms ({bound.by})")
         x = x_of((b, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]))
         t_plain, t_kernel = in_turns(lambda: reorg_plain(x, 2), lambda: reorg_s2d(x, 2))
-        result[("reorg_s2d", b)] = (t_kernel, t_plain)
+        bound = Bound().add(2 * nbytes(x))
+        result[("reorg_s2d", b)] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": None,
+                                    "bound_ms": bound.total, "bound_by": bound.by}
         log(f"[time] {card} | reorg_s2d {tuple(x.shape)} bf16: kernel {t_kernel:.4f} ms, plain "
-            f"{t_plain:.4f} ms (median of 8 / 8)")
+            f"{t_plain:.4f} ms (median of 8 / 8); bound {bound.total:.5f} ms by bytes; no "
+            "PyTorch call computes it (pixel_unshuffle orders channels c*4+p*2+q)")
+    return result
+
+
+def host_split(card: str) -> dict:
+    """Where a kernel wrapper's host time goes: each part of a maxpool2x2
+    call at Tiny's batch-8 pool4 shape, (8, 52, 52, 128) bf16, timed alone
+    with ``time.perf_counter_ns``, the median of HOST_ROUNDS rounds of
+    HOST_CALLS calls (a round's mean picks up the host's hiccups), beside
+    the whole wrapper, the engine's call with its permutes and
+    ``F.max_pool2d``.  The device context and the ``torch.cuda.Stream``
+    lookup are the parts the first launch path paid on every call; the
+    current device index, the raw stream handle and ``new_empty`` are what
+    ``_build.Kernel`` and the wrappers use instead."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from yolojax_torch.kernels import _build, pool
+
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal((8, 52, 52, 128))
+                         .astype(np.float32)).to("cuda", torch.bfloat16)
+    xc = x.permute(0, 3, 1, 2)
+    y = pool.maxpool2x2(x)
+    shape, dev = tuple(y.shape), x.device
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = _build.load(pool.SOURCE, {"yolo_maxpool2x2": [ptr, ptr, i32, i32, i32, i32, i32, ptr]})
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    xp, yp = x.data_ptr(), y.data_ptr()
+    raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    get_device = getattr(torch._C, "_cuda_getDevice", None)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "device context, enter and exit": context,
+        "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev)
+        .cuda_stream,
+        "_build.load(source) lookup": lambda: _build.load(pool.SOURCE, {}),
+        "current device index": get_device,
+        "raw stream handle": (lambda: raw_stream(0)) if raw_stream else None,
+        "_check(x)": lambda: pool._check(x),
+        "torch.empty(out)": lambda: torch.empty(shape, dtype=x.dtype, device=dev),
+        "x.new_empty(out)": lambda: x.new_empty(shape),
+        "data_ptr() of x and out": lambda: (x.data_ptr(), y.data_ptr()),
+        "ctypes call with its launch": lambda: lib.yolo_maxpool2x2(xp, yp, 8, 52, 52, 128, 1,
+                                                                   stream),
+        "Kernel call: lookups, ctypes call, launch, error check": lambda: pool._KERNEL(
+            x, xp, yp, 8, 52, 52, 128, 1),
+        "the engine's two permutes": lambda: xc.permute(0, 2, 3, 1).permute(0, 3, 1, 2),
+        "maxpool2x2(x), the whole wrapper": lambda: pool.maxpool2x2(x),
+        "the engine's call, permutes and wrapper": lambda: pool.maxpool2x2(
+            xc.permute(0, 2, 3, 1)).permute(0, 3, 1, 2),
+        "F.max_pool2d(x_nchw, 2, 2)": lambda: F.max_pool2d(xc, 2, 2),
+    }
+    result = {}
+    for what, fn in parts.items():
+        if fn is None:
+            log(f"[host] {what}: not in this torch")
+            continue
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        rounds = []
+        for _ in range(HOST_ROUNDS):
+            t0 = time.perf_counter_ns()
+            for _ in range(HOST_CALLS):
+                fn()
+            rounds.append((time.perf_counter_ns() - t0) / HOST_CALLS / 1e3)
+            torch.cuda.synchronize()
+        result[what] = float(np.median(rounds))
+        log(f"[host] {card} | {what}: {result[what]:.2f} us per call (median of {HOST_ROUNDS} "
+            f"rounds of {HOST_CALLS}; rounds {min(rounds):.2f}-{max(rounds):.2f})")
     return result
 
 
@@ -770,6 +975,7 @@ def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; see --help in the source")
     t0 = time.perf_counter()
+    host_split(card)
     err = {"postprocess_fused": fused_vs_plain(), **dw_vs_plain(), "nms_select": nms_vs_plain(),
            **layout_vs_plain()}
     # each model's times right after its path, so Darknet's stay comparable
@@ -794,14 +1000,17 @@ def main() -> None:
     layout_t = layout_times(card)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
-    # launches: summed over the four main paths' runs (3 batches each); ms /
-    # plain_ms at batch 8: fused on Darknet's raw head, nms_select on
-    # Darknet-s2d's decoded head, dwconv3x3 and dwsep summed over one
-    # MobileNet-416 forward's routed layers, maxpool2x2 over one Darknet-416
-    # forward's routed pools, reorg_s2d at c21's shape
+    # launches: summed over the four main paths' runs (3 batches each); ms,
+    # plain_ms, library_ms and bound_ms at batch 8: fused on Darknet's raw
+    # head, nms_select on Darknet-s2d's decoded head, dwconv3x3 and dwsep
+    # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
+    # one Darknet-416 forward's routed pools, reorg_s2d at c21's shape
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches)
     b = TIME_BATCHES[0]
-    times = {"postprocess_fused": (dark_t[b]["kernel_ms"], dark_t[b]["plain_ms"]),
+    fused = dark_t[b]
+    times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
+                                   "library_ms": None, "bound_ms": fused["bound_ms"],
+                                   "bound_by": fused["bound_by"]},
              "dwconv3x3": dw_t[("dwconv3x3", b)], "dwsep": dw_t[("dwsep", b)],
              "nms_select": nms_t[b], "maxpool2x2": layout_t[("maxpool2x2", "Darknet", b)],
              "reorg_s2d": layout_t[("reorg_s2d", b)]}
@@ -814,7 +1023,9 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),
-         "max_abs_err": err[k], "ms": times[k][0], "plain_ms": times[k][1]}
+         "max_abs_err": err[k], "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
+         "bound_ms": times[k]["bound_ms"], "bound_by": times[k]["bound_by"],
+         "library_ms": times[k]["library_ms"]}
         for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

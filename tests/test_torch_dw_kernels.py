@@ -225,3 +225,59 @@ def test_cuda_dwsep_matches_plain_version(rng, cuda_device, stride, shape, cout,
     want = sk.dwsep_plain(x, wd, bd, wp, bp, stride)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# -- the shared launch path and the bf16 kernel's layouts --------------------
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_launch_helper_raises_off_cuda(device, tmp_path, monkeypatch):
+    """The shared launch path takes CUDA tensors only, and raises before it
+    builds anything."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", lambda: pytest.fail("built for a non-CUDA tensor"))
+    kernel = _build.Kernel(sk.SOURCE, "yolo_dwsep_bf16", [])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernel(torch.empty((1, 4, 4, 8), device=device))
+    assert kernel._fn is None and not list(tmp_path.iterdir())
+
+
+def test_bf16_channel_limit_is_checked():
+    wd, bd = torch.zeros((3, 3, 1032), dtype=torch.bfloat16), torch.zeros(1032)
+    wp, bp = torch.zeros((1032, 8), dtype=torch.bfloat16), torch.zeros(8)
+    x = torch.zeros((1, 3, 3, 1032), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 1024"):
+        sk._check(x, wd, bd, wp, bp, 1)
+    sk._check(x[..., :1024].contiguous(), wd[..., :1024].contiguous(), bd[:1024],
+              wp[:1024].contiguous(), bp, 1)
+    sk._check(x.float(), wd.float(), bd, wp.float(), bp, 1)         # f32: no limit
+
+
+def test_engine_stores_the_pointwise_weights_in_both_layouts():
+    from yolojax_torch.models.mobilenet import MobileNet
+
+    model = MobileNet(anchors=np.ones((5, 2), np.float32), num_classes=20,
+                      dtype=torch.bfloat16, pallas=frozenset({"dwsep", "dwconv"}))
+    folded = model.fold(*model.init(torch.Generator().manual_seed(0)))
+    for name in ("pw7", "pw12", "pw13"):
+        lq = folded[name]
+        assert torch.equal(lq["w_oi"], lq["w"][:, :, 0, 0]) and lq["w_oi"].is_contiguous()
+        assert torch.equal(lq["w_io"], lq["w"][:, :, 0, 0].t()) and lq["w_io"].is_contiguous()
+    assert "w_oi" not in folded["pw2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,c,cout", [(3, 13, 1024, 1024), (128, 26, 512, 512)])
+def test_cuda_dwsep_bf16_at_ragged_and_full_batch(rng, cuda_device, b, h, c, cout):
+    """B=3 at 13×13 leaves a last pixel tile that is not full (507 pixels);
+    B=128 is the main path's throughput batch.  With and without the engine's
+    (Cout, C) copy of the weights."""
+    x, wd, bd, wp, bp = _dwsep_inputs(rng, (b, h, h, c), cout)
+    x, wd, wp = (_as(a, "bfloat16").to(cuda_device) for a in (x, wd, wp))
+    bd, bp = (torch.from_numpy(a).to(cuda_device) for a in (bd, bp))
+    want = sk.dwsep_plain(x, wd, bd, wp, bp, 1)
+    for wp_t in (None, wp.t().contiguous()):
+        got = sk.dwsep(x, wd, bd, wp, bp, 1, wp_t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    with pytest.raises(ValueError, match="wp_t"):
+        sk.dwsep(x, wd, bd, wp, bp, 1, wp.t())                   # not contiguous

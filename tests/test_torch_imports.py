@@ -1,0 +1,79 @@
+"""The port stands alone: no module of yolojax_torch, and not chip_smoke.py,
+imports the JAX package or jax.
+
+Each file's AST is walked for ``import yolojax…``, ``from yolojax…`` and
+``import jax…`` / ``from jax…`` (``yolojax_torch`` itself is allowed).  A
+second check imports every module of the port in a fresh interpreter in
+which importing ``yolojax`` or ``jax`` raises, so an import hidden behind a
+call or a string fails too.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "yolojax_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("yolojax", "jax")
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, alias.name) for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_the_walk_sees_every_module():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"yolojax_torch/config.py", "yolojax_torch/category.py",
+            "yolojax_torch/cli/__init__.py", "yolojax_torch/utils/visualize.py",
+            "yolojax_torch/kernels/_build.py", "chip_smoke.py"} <= names
+    assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
+    # the check itself: a forbidden import is found, the port's own is not
+    assert _forbidden("yolojax.config") and _forbidden("jax.numpy") and _forbidden("jax")
+    assert not _forbidden("yolojax_torch.config") and not _forbidden("jaxlib_free")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_module_imports_nothing_of_jax_or_yolojax(path):
+    bad = [(line, name) for line, name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+BLOCKER = """
+import importlib, importlib.abc, pkgutil, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("yolojax", "jax"):
+            raise ImportError(f"the port imported {name}")
+sys.meta_path.insert(0, Block())
+for name in [m for m in sys.modules if m.split(".")[0] in ("yolojax", "jax")]:
+    del sys.modules[name]  # a start-up hook may have imported them already
+sys.path.insert(0, sys.argv[1])
+import yolojax_torch
+for info in pkgutil.walk_packages(yolojax_torch.__path__, "yolojax_torch."):
+    importlib.import_module(info.name)
+import chip_smoke
+from yolojax_torch.cli import common, detect, make_parser, setup
+config = setup(make_parser("x").parse_args(["-m", "model/pallas=nms fusedpost pool"]))
+category, anchors, model = common.build(config)
+assert len(category) == 20 and anchors.shape == (5, 2)
+print("standalone", type(model).__name__)
+"""
+
+
+def test_the_port_imports_and_builds_with_yolojax_and_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", BLOCKER, str(ROOT)], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "standalone Darknet" in proc.stdout

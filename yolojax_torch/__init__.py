@@ -11,9 +11,12 @@ by hand for Hopper (``csrc/``), built with ``nvcc`` at first use and bound
 with ``ctypes``.  Each kernel's wrapper launches it for a CUDA tensor and runs
 its plain PyTorch version only for a tensor on the CPU.
 
-The port imports ``torch`` and never ``jax``.  It reuses, unchanged, the
-yolojax modules that import no jax: ``yolojax.config``, ``yolojax.category``,
-``yolojax.utils.visualize`` and ``yolojax.cli`` (``make_parser``, ``setup``).
+The port imports ``torch`` and nothing of ``jax`` or of the ``yolojax``
+package: what it needs of yolojax's jax-free modules it keeps as its own
+copies (``config``, ``category``, ``cli``, ``utils.visualize``), which
+``tests/test_torch_config.py`` holds equal to the originals.  Config values
+that name ``yolojax.`` code are strings that ``config.parse_attr`` resolves
+to the port's counterparts.
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,7 @@ import logging
 
 import torch
 
-from yolojax.category import get_anchors, get_category
-
+from ..category import get_anchors, get_category
 from ..config import get_model_dir
 from ..models import build_model
 from ..utils import checkpoint as ckpt

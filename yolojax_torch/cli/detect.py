@@ -16,12 +16,11 @@ import os
 import numpy as np
 import torch
 
-from yolojax.cli import make_parser, setup
-from yolojax.utils.visualize import draw_boxes
-
 from ..config import get_canvas
 from ..data.transform import resize_from_config
 from ..models.inference import Inference
+from ..utils.visualize import draw_boxes
+from . import make_parser, setup
 from .common import build, load_weights_auto
 
 _LOG = logging.getLogger(__name__)

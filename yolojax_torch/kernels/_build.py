@@ -9,7 +9,14 @@ into one rounding that the source did not ask for.  ``-Xptxas=-v``'s report
 (registers, spills) is kept beside the library as ``.log``.
 
 Every library exports ``yolo_cuda_error_string(int)``; each launch entry
-point returns ``cudaGetLastError()``, which :func:`check` turns into an error.
+point returns ``cudaGetLastError()``, which :class:`Kernel` turns into an
+error.
+
+:class:`Kernel` is the launch path all wrappers share.  It loads its library
+and binds the entry point's ``argtypes`` once, then per call: enters the
+device context only when the tensor's device is not the current one, takes
+the current stream's raw handle (no ``torch.cuda.Stream`` object), calls the
+entry point and raises on its error code.
 """
 
 from __future__ import annotations
@@ -22,8 +29,10 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build", "build_all", "load",
-           "check"]
+           "Kernel"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolojax_torch"
@@ -84,18 +93,53 @@ def load(source: Path, signatures: dict) -> ctypes.CDLL:
     return an ``int`` error code."""
     if source not in _loaded:
         lib = ctypes.CDLL(str(build(source)))
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
         lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.yolo_cuda_error_string.restype = ctypes.c_char_p
         _loaded[source] = lib
-    return _loaded[source]
+    lib = _loaded[source]
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch entry point returned a CUDA error."""
-    if err:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.yolo_cuda_error_string(err).decode()} ({err})")
+class Kernel:
+    """One launch entry point of ``source``'s library: ``argtypes`` are its
+    arguments before the trailing stream.  ``kernel(x, *args)`` launches it
+    on the current stream of CUDA tensor ``x``'s device."""
+
+    __slots__ = ("source", "name", "argtypes", "_fn", "_lib")
+
+    def __init__(self, source: Path, name: str, argtypes):
+        self.source, self.name, self.argtypes = source, name, list(argtypes)
+        self._fn = self._lib = None
+
+    def _bind(self):
+        global _current_device, _raw_stream
+        if _current_device is None:
+            torch.cuda.init()
+            _current_device = torch._C._cuda_getDevice
+            _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+                lambda index: torch.cuda.current_stream(index).cuda_stream)
+        self._lib = load(self.source, {self.name: [*self.argtypes, ctypes.c_void_p]})
+        self._fn = getattr(self._lib, self.name)
+        return self._fn
+
+    def __call__(self, x: torch.Tensor, *args) -> None:
+        index = x.get_device()
+        if index < 0:
+            raise ValueError(f"{self.name}: unsupported device {x.device}")
+        fn = self._fn or self._bind()
+        if index == _current_device():
+            err = fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
+        if err:
+            raise RuntimeError(f"{self.name} launch failed: "
+                               f"{self._lib.yolo_cuda_error_string(err).decode()} ({err})")
+
+
+# torch's current-device and raw-stream lookups, bound at the first launch
+_current_device = _raw_stream = None

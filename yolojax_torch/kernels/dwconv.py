@@ -29,9 +29,9 @@ __all__ = ["dwconv3x3", "dwconv3x3_plain", "build", "SOURCE"]
 
 SOURCE = _build.CSRC / "dwconv3x3.cu"
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"yolo_dwconv3x3": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32,
-                                  _I32, _PTR]}
-_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL = _build.Kernel(SOURCE, "yolo_dwconv3x3", [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
+                                                   _I32, _I32, _I32])
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def build():
@@ -57,11 +57,11 @@ def _check(x, w, b, stride):
     if x.dim() != 4 or w.shape != (3, 3, c) or b.shape != (c,):
         raise ValueError(f"dwconv3x3: x {tuple(x.shape)}, w {tuple(w.shape)}, b "
                          f"{tuple(b.shape)}; expected (B, H, W, C), (3, 3, C), (C,)")
-    if stride not in (1, 2):
+    if stride != 1 and stride != 2:
         raise ValueError(f"dwconv3x3: stride {stride}; expected 1 or 2")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("dwconv3x3: x, w and b must be contiguous (x as NHWC)")
-    if not (x.device == w.device == b.device):
+    if not (x.get_device() == w.get_device() == b.get_device()):
         raise ValueError(f"dwconv3x3: tensors on {x.device}, {w.device}, {b.device}")
 
 
@@ -70,22 +70,17 @@ def dwconv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1
     """x (B, H, W, C), taps w (3, 3, C) in x's dtype, bias b (C,) f32 →
     (B, Ho, Wo, C) in x's dtype: depthwise 3×3 SAME conv (symmetric padding
     1, f32 sum), rounded, then ``+ b`` and leaky (``act``) in f32, rounded."""
-    if x.device.type == "cpu":
-        return dwconv3x3_plain(x, w, b, stride, act)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dwconv3x3_plain(x, w, b, stride, act)
         raise ValueError(f"dwconv3x3: unsupported device {x.device}")
     _check(x, w, b, stride)
     bsz, h, wd, c = x.shape
-    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
-    y = torch.empty((bsz, ho, wo, c), dtype=x.dtype, device=x.device)
+    y = x.new_empty((bsz, (h - 1) // stride + 1, (wd - 1) // stride + 1, c))
     if y.numel() == 0:
         return y
-    lib = _build.load(SOURCE, _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.yolo_dwconv3x3(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h,
-                                 wd, c, stride, int(act), int(x.dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "dwconv3x3")
+    _KERNEL(x, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, c, stride,
+            act, x.dtype == torch.bfloat16)
     dwconv3x3.launches += 1
     return y
 

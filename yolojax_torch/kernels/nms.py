@@ -34,8 +34,8 @@ SOURCE = _build.CSRC / "nms_select.cu"
 _SMEM_LIMIT = 48 * 1024
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"yolo_nms_select": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _F32, _F32,
-                                   _I32, _PTR]}
+_KERNEL = _build.Kernel(SOURCE, "yolo_nms_select", [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32,
+                                                    _F32, _F32, _I32])
 
 
 def build():
@@ -51,9 +51,9 @@ def nms_select(yx_min: torch.Tensor, yx_max: torch.Tensor, scores: torch.Tensor,
     (idx int32, conf f32, valid bool), each (..., max_out); inputs are
     upcast to f32 (plain version for CPU scores).
     """
-    if scores.device.type == "cpu":
-        return plain.nms_select(yx_min, yx_max, scores, threshold, overlap, max_out)
-    if scores.device.type != "cuda":
+    if not scores.is_cuda:
+        if scores.device.type == "cpu":
+            return plain.nms_select(yx_min, yx_max, scores, threshold, overlap, max_out)
         raise ValueError(f"nms_select: unsupported device {scores.device}")
     lead, n = scores.shape[:-1], scores.shape[-1]
     box_lead = torch.broadcast_shapes(yx_min.shape[:-2], yx_max.shape[:-2])
@@ -80,14 +80,9 @@ def nms_select(yx_min: torch.Tensor, yx_max: torch.Tensor, scores: torch.Tensor,
         box_row = (torch.arange(math.prod(box_lead), dtype=torch.int32, device=dev)
                    .reshape(box_lead).broadcast_to(lead).reshape(g).contiguous())
         scores32 = scores.to(torch.float32).reshape(g, n).contiguous()
-        lib = _build.load(SOURCE, _SIGNATURES)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.yolo_nms_select(boxes.data_ptr(), scores32.data_ptr(),
-                                      box_row.data_ptr(), idx.data_ptr(), conf.data_ptr(),
-                                      count.data_ptr(), g, n, threshold, overlap, max_out,
-                                      stream)
-        _build.check(lib, err, "nms_select")
+        _KERNEL(scores, boxes.data_ptr(), scores32.data_ptr(), box_row.data_ptr(),
+                idx.data_ptr(), conf.data_ptr(), count.data_ptr(), g, n, threshold, overlap,
+                max_out)
         nms_select.launches += 1
     valid = torch.arange(max_out, device=dev) < count[:, None]
     shape = (*lead, max_out)

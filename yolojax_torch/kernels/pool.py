@@ -27,8 +27,8 @@ __all__ = ["maxpool2x2", "maxpool2x2_plain", "build", "SOURCE"]
 
 SOURCE = _build.CSRC / "maxpool2x2.cu"
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"yolo_maxpool2x2": [_PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR]}
-_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL = _build.Kernel(SOURCE, "yolo_maxpool2x2", [_PTR, _PTR, _I32, _I32, _I32, _I32, _I32])
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def build():
@@ -55,21 +55,16 @@ def _check(x):
 def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, C), H and W even → (B, H/2, W/2, C) in x's dtype, the max
     of each 2×2 window."""
-    if x.device.type == "cpu":
-        return maxpool2x2_plain(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return maxpool2x2_plain(x)
         raise ValueError(f"maxpool2x2: unsupported device {x.device}")
     _check(x)
     b, h, w, c = x.shape
-    y = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    y = x.new_empty((b, h // 2, w // 2, c))
     if y.numel() == 0:
         return y
-    lib = _build.load(SOURCE, _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.yolo_maxpool2x2(x.data_ptr(), y.data_ptr(), b, h, w, c,
-                                  int(x.dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "maxpool2x2")
+    _KERNEL(x, x.data_ptr(), y.data_ptr(), b, h, w, c, x.dtype == torch.bfloat16)
     maxpool2x2.launches += 1
     return y
 

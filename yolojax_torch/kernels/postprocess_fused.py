@@ -27,8 +27,9 @@ SOURCE = _build.CSRC / "postprocess_fused.cu"
 _SMEM_LIMIT = 48 * 1024
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"yolo_postprocess_fused": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
-                                          _I32, _I32, _F32, _F32, _I32, _PTR]}
+_KERNEL = _build.Kernel(SOURCE, "yolo_postprocess_fused", [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                                           _I32, _I32, _I32, _I32, _I32, _F32,
+                                                           _F32, _I32])
 
 
 def build():
@@ -40,9 +41,9 @@ def postprocess_fused(raw: torch.Tensor, anchors, threshold: float, overlap: flo
                       topk: int) -> PostProcessed:
     """raw (B, H, W, A*(5+C)) + anchors (A, 2) → PostProcessed, decode and
     per-class greedy NMS in one kernel (plain version for a CPU tensor)."""
-    if raw.device.type == "cpu":
-        return postprocess_raw(raw, anchors, threshold, overlap, topk)
-    if raw.device.type != "cuda":
+    if not raw.is_cuda:
+        if raw.device.type == "cpu":
+            return postprocess_raw(raw, anchors, threshold, overlap, topk)
         raise ValueError(f"postprocess_fused: unsupported device {raw.device}")
     b, h, w, ch = raw.shape
     anchors = torch.as_tensor(anchors, dtype=torch.float32, device=raw.device).contiguous()
@@ -63,13 +64,8 @@ def postprocess_fused(raw: torch.Tensor, anchors, threshold: float, overlap: flo
     yx_max = torch.empty((b, c, topk, 2), dtype=torch.float32, device=dev)
     conf = torch.empty((b, c, topk), dtype=torch.float32, device=dev)
     count = torch.empty((b, c), dtype=torch.int32, device=dev)
-    lib = _build.load(SOURCE, _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.yolo_postprocess_fused(
-            raw32.data_ptr(), anchors.data_ptr(), yx_min.data_ptr(), yx_max.data_ptr(),
-            conf.data_ptr(), count.data_ptr(), b, h, w, a, c, threshold, overlap, topk, stream)
-    _build.check(lib, err, "postprocess_fused")
+    _KERNEL(raw, raw32.data_ptr(), anchors.data_ptr(), yx_min.data_ptr(), yx_max.data_ptr(),
+            conf.data_ptr(), count.data_ptr(), b, h, w, a, c, threshold, overlap, topk)
     postprocess_fused.launches += 1
     keep = torch.arange(topk, device=dev) < count[..., None]
     return PostProcessed(yx_min, yx_max, conf, keep)

@@ -24,8 +24,8 @@ __all__ = ["reorg_s2d", "build", "SOURCE"]
 
 SOURCE = _build.CSRC / "reorg_s2d.cu"
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"yolo_reorg_s2d": [_PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _PTR]}
-_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL = _build.Kernel(SOURCE, "yolo_reorg_s2d", [_PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32])
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def build():
@@ -48,22 +48,17 @@ def _check(x, stride):
 
 def reorg_s2d(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     """(B, H, W, C) → (B, H/s, W/s, s*s*C), channel ``(p*s + q)*C + c``."""
-    if x.device.type == "cpu":
-        return plain.reorg_s2d(x, stride)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return plain.reorg_s2d(x, stride)
         raise ValueError(f"reorg_s2d: unsupported device {x.device}")
     _check(x, stride)
     b, h, w, c = x.shape
     s = stride
-    y = torch.empty((b, h // s, w // s, s * s * c), dtype=x.dtype, device=x.device)
+    y = x.new_empty((b, h // s, w // s, s * s * c))
     if y.numel() == 0:
         return y
-    lib = _build.load(SOURCE, _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.yolo_reorg_s2d(x.data_ptr(), y.data_ptr(), b, h, w, c, s, x.element_size(),
-                                 stream)
-    _build.check(lib, err, "reorg_s2d")
+    _KERNEL(x, x.data_ptr(), y.data_ptr(), b, h, w, c, s, x.element_size())
     reorg_s2d.launches += 1
     return y
 

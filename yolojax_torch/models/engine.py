@@ -136,7 +136,7 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
             if n is not None:
                 q = folded[n.name]
                 x = dwsep_k.dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
-                                  d.stride).permute(0, 3, 1, 2)
+                                  d.stride, q["w_oi"]).permute(0, 3, 1, 2)
                 skip = i + 1
             elif use_dw_k and _dw_routable(d):
                 x = dwconv_k.dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
@@ -169,7 +169,9 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
 def add_kernel_weights(plan, folded, pallas: frozenset) -> None:
     """Store, once, the weight layouts the selected kernels read, beside the
     OIHW ``w`` of each layer they may take: ``taps`` (3, 3, C) for a routable
-    depthwise conv, ``w_io`` (C, Cout) for the 1×1 conv after it."""
+    depthwise conv; for the 1×1 conv after it ``w_io`` (C, Cout), the JAX
+    kernel's layout, and ``w_oi`` (Cout, C), which the bf16 dwsep kernel
+    reads."""
     use_dw_k = kernel_active("dwconv", pallas)
     use_dwsep = kernel_active("dwsep", pallas)
     for i, op in enumerate(plan):
@@ -180,7 +182,8 @@ def add_kernel_weights(plan, folded, pallas: frozenset) -> None:
         n = _pointwise_after(plan, i) if use_dwsep and op[1].act else None
         if n is not None:
             lq = folded[n.name]
-            lq["w_io"] = lq["w"][:, :, 0, 0].t().contiguous()
+            lq["w_oi"] = lq["w"][:, :, 0, 0].contiguous()
+            lq["w_io"] = lq["w_oi"].t().contiguous()
 
 
 def fold_plan(plan, params, state, bn: BNConfig):
