@@ -14,12 +14,13 @@ Phases, each of which passes or raises (any failure exits non-zero):
    HGMMA (wgmma) in the SASS of dwsep's bf16 kernel (``cuobjdump``);
    then the host time of one ``maxpool2x2`` call at Tiny's batch-8 pool4
    shape, part by part (``time.perf_counter_ns``, median of 7 rounds of 300
-   calls), beside
-   ``F.max_pool2d``;
+   calls), beside ``F.max_pool2d``, and of one fused decode+NMS call;
 3. kernels against their plain versions on the card:
    * fused decode+NMS — raw heads from numpy seeds, f32 and bf16, four
      geometries, bench and saturated densities: ``keep`` and pick order
-     identical, conf rtol 1e-5 (2e-5 at C=80), corners atol 1e-5;
+     identical, conf rtol 1e-5 (2e-5 at C=80), corners atol 1e-5; prints
+     the longest compacted row (candidates above the threshold) per case;
+     then ``torch.profiler`` over one call must show one device kernel;
    * dwconv3x3 and dwsep — MobileNet-416's routed shapes at batch 8, an odd
      spatial size, channel counts that are not multiples of 128 (and, for
      dwsep, C = 36: element loads), a last pixel tile that is not full
@@ -27,6 +28,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
      rtol/atol 1e-4 (the JAX tests' bound), bf16
      rtol/atol 1e-2 (about one bf16 ulp: the plain version sums in cuDNN's
      order); prints the share of output elements that are not bit-identical;
+     dwconv3x3 must be bit-identical to its tap-order reference
+     (``dwconv3x3_taps``, separate torch ops on the card), also where a row
+     tile is cut by the image border (37 rows) and where a row takes two
+     column tiles;
    * nms_select — the four geometries' decoded heads, bench and saturated
      densities, boxes broadcast over the classes and one box row per class,
      max_out 100 (and 300 at 19×19): idx, conf and valid identical; then the
@@ -120,8 +125,11 @@ MOBILENET_LAUNCHES = per_batch(postprocess_fused=1, dwconv3x3=4, dwsep=7)
 S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=3, reorg_s2d=1)
 TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=2)
 # kernel-vs-plain cases beyond the routed shapes: odd spatial sizes, C % 128 != 0
+# (2, 37, ...): the last 16-row tile of the 37 output rows holds 5; (1, 400, ...) and
+# (1, 600, ...) walk each row in two column tiles
 DWCONV_EXTRA = [(8, 27, 128, 128, 2), (8, 13, 1024, 1024, 2), (2, 13, 72, 72, 1),
-                (2, 13, 36, 36, 2)]
+                (2, 13, 36, 36, 2), (2, 37, 128, 128, 1), (1, 400, 32, 32, 1),
+                (1, 600, 16, 16, 2)]
 DWSEP_EXTRA = [(8, 27, 64, 96, 2), (8, 13, 512, 1024, 2), (2, 13, 72, 40, 1), (2, 13, 36, 40, 1),
                (3, 13, 1024, 1024, 1), (128, 26, 512, 512, 1)]
 POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3)]
@@ -266,6 +274,13 @@ def seeded_raw(rng, b, h, w, a, c, density: str) -> np.ndarray:
     return raw
 
 
+def compacted(det) -> int:
+    """The longest compacted row of a decoded head: the most candidates of
+    one (image, class) whose score is > THRESHOLD, which the greedy loop of
+    both NMS kernels walks."""
+    return int((det.conf > THRESHOLD).sum(1).max().item())
+
+
 def fused_vs_plain() -> float:
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
     from yolojax_torch.ops.decode import decode
@@ -286,10 +301,34 @@ def fused_vs_plain() -> float:
                 what = f"({b},{h},{w},{a * (5 + c)}) {density} {str(dtype)[6:]}"
                 err = compare(got, want, c, what, det)
                 worst, cases = max(worst, err), cases + 1
-                log(f"[kernel] fused {what}: match, {int(want.keep.sum())} picks, "
-                    f"max abs err {err:.3g}")
+                log(f"[kernel] fused {what}: match, {int(want.keep.sum())} picks, longest "
+                    f"compacted row {compacted(det)} of {h * w * a}, max abs err {err:.3g}")
     log(f"[kernel] fused: {cases} cases match the plain version; max abs err {worst:.3g}")
     return worst
+
+
+def fused_one_launch() -> None:
+    """One postprocess_fused call issues exactly one device kernel (no
+    upcast, no keep, no memset or copy): torch.profiler over one call on a
+    bf16 Darknet-416 head at batch 8, anchors already on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from yolojax_torch.kernels.postprocess_fused import postprocess_fused
+
+    rng = np.random.default_rng(12)
+    anchors = torch.from_numpy(rng.uniform(0.5, 4.0, (5, 2)).astype(np.float32)).cuda()
+    raw = torch.from_numpy(seeded_raw(rng, 8, 13, 13, 5, 20, "bench")).to("cuda", torch.bfloat16)
+    postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(device) != 1 or "postprocess_fused" not in device[0]:
+        raise AssertionError(f"postprocess_fused: one call ran {len(device)} device "
+                             f"activities {device}; expected the fused kernel alone")
+    log(f"[kernel] fused: one call issues one device kernel ({device[0][:60]})")
 
 
 def dw_inputs(rng, b, h, c, cout, dtype):
@@ -302,8 +341,10 @@ def dw_inputs(rng, b, h, c, cout, dtype):
 
 
 def dw_vs_plain() -> dict:
-    """dwconv3x3 and dwsep against their plain versions; worst abs err each."""
-    from yolojax_torch.kernels.dwconv import dwconv3x3, dwconv3x3_plain
+    """dwconv3x3 and dwsep against their plain versions; worst abs err each.
+    dwconv3x3 must also be bit-identical to its tap-order reference, computed
+    on the card with separate torch ops."""
+    from yolojax_torch.kernels.dwconv import dwconv3x3, dwconv3x3_plain, dwconv3x3_taps
     from yolojax_torch.kernels.dwsep import dwsep, dwsep_plain
 
     rng = np.random.default_rng(4)
@@ -330,8 +371,12 @@ def dw_vs_plain() -> dict:
             err = (got.float() - want.float()).abs().max().item()
             differ = (got != want).float().mean().item()
             worst[name] = max(worst[name], err)
+            taps = ""
+            if name == "dwconv3x3":
+                check_bits(got, dwconv3x3_taps(x, wd, bd, stride), f"{what} vs the tap order")
+                taps = "; bit-identical to the tap-order reference"
             log(f"[kernel] {what}: match, max abs err {err:.3g}, "
-                f"{100 * differ:.4f} % of elements not bit-identical")
+                f"{100 * differ:.4f} % of elements not bit-identical to the plain version{taps}")
     log(f"[kernel] depthwise: {2 * len(cases)} cases match the plain versions; "
         f"max abs err {worst}")
     return worst
@@ -375,7 +420,8 @@ def nms_vs_plain() -> float:
                             raise AssertionError(f"{what}: {part} differs")
                     err = (got[1] - want[1]).abs().max().item()
                     worst, cases = max(worst, err), cases + 1
-                    log(f"[kernel] {what}: identical, {int(want[2].sum())} picks")
+                    log(f"[kernel] {what}: identical, {int(want[2].sum())} picks, longest "
+                        f"compacted row {compacted(det)}")
             got = postprocess_nms(det, THRESHOLD, OVERLAP, TOPK)
             want = postprocess(det, THRESHOLD, OVERLAP, TOPK)
             err = compare(got, want, c, f"postprocess_nms ({b},{c},{n}) {density}")
@@ -521,7 +567,7 @@ def drive(config, what: str, expect: dict):
             picks = out.keep.sum(-1).float()
             log(f"[{what}] batch {i}: raw {tuple(raw.shape)} {raw.dtype}, keep matches the "
                 f"plain postprocess; picks per (image, class) mean {picks.mean().item():.2f} "
-                f"max {int(picks.max().item())}")
+                f"max {int(picks.max().item())}; longest compacted row {compacted(det)}")
     log(f"[{what}] detect_fn ran {len(batches)} batches; launches {launches}")
 
     image = np.random.default_rng(2).integers(0, 256, (480, 640, 3), dtype=np.uint8)
@@ -553,7 +599,8 @@ def dense_batch(model, folded, run, what: str) -> None:
     if not picks.max() > 0:
         raise AssertionError(f"{what} dense batch: no picks to compare")
     log(f"[{what}] dense batch (objectness bias 0): keep matches the plain postprocess; "
-        f"picks per (image, class) mean {picks.mean().item():.2f} max {int(picks.max().item())}")
+        f"picks per (image, class) mean {picks.mean().item():.2f} max {int(picks.max().item())}; "
+        f"longest compacted row {compacted(det)} of {det.conf.shape[1]}")
 
 
 def without(model, tokens: set):
@@ -851,18 +898,28 @@ def host_split(card: str) -> dict:
     with ``time.perf_counter_ns``, the median of HOST_ROUNDS rounds of
     HOST_CALLS calls (a round's mean picks up the host's hiccups), beside
     the whole wrapper, the engine's call with its permutes and
-    ``F.max_pool2d``.  The device context and the ``torch.cuda.Stream``
-    lookup are the parts the first launch path paid on every call; the
-    current device index, the raw stream handle and ``new_empty`` are what
-    ``_build.Kernel`` and the wrappers use instead."""
+    ``F.max_pool2d``; then the fused decode+NMS wrapper on a batch-8 bf16
+    head and its ``Kernel`` call alone.  The device context and the
+    ``torch.cuda.Stream`` lookup are the parts the first launch path paid on
+    every call; the current device index, the raw stream handle and
+    ``new_empty`` are what ``_build.Kernel`` and the wrappers use instead."""
     import ctypes
 
     import torch.nn.functional as F
 
     from yolojax_torch.kernels import _build, pool
+    from yolojax_torch.kernels import postprocess_fused as pf
+    from yolojax_torch.kernels.postprocess_fused import postprocess_fused
 
-    x = torch.from_numpy(np.random.default_rng(11).standard_normal((8, 52, 52, 128))
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((8, 52, 52, 128))
                          .astype(np.float32)).to("cuda", torch.bfloat16)
+    raw = torch.from_numpy(seeded_raw(rng, 8, 13, 13, 5, 20, "bench")).to("cuda", torch.bfloat16)
+    anchors = torch.from_numpy(rng.uniform(0.5, 4.0, (5, 2)).astype(np.float32)).cuda()
+    out = postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK)
+    group, smem = pf.layout(845, 20, 8, torch.cuda.get_device_properties(0).multi_processor_count)
+    fused_args = (raw.data_ptr(), anchors.data_ptr(), *(t.data_ptr() for t in out), 8, 13, 13, 5,
+                  20, group, smem, THRESHOLD, OVERLAP, TOPK, 1)
     xc = x.permute(0, 3, 1, 2)
     y = pool.maxpool2x2(x)
     shape, dev = tuple(y.shape), x.device
@@ -897,6 +954,9 @@ def host_split(card: str) -> dict:
         "the engine's call, permutes and wrapper": lambda: pool.maxpool2x2(
             xc.permute(0, 2, 3, 1)).permute(0, 3, 1, 2),
         "F.max_pool2d(x_nchw, 2, 2)": lambda: F.max_pool2d(xc, 2, 2),
+        "postprocess_fused, the whole wrapper (B=8 bf16 head)": lambda: postprocess_fused(
+            raw, anchors, THRESHOLD, OVERLAP, TOPK),
+        "postprocess_fused's Kernel call alone": lambda: pf._KERNEL(raw, *fused_args),
     }
     result = {}
     for what, fn in parts.items():
@@ -978,6 +1038,7 @@ def main() -> None:
     host_split(card)
     err = {"postprocess_fused": fused_vs_plain(), **dw_vs_plain(), "nms_select": nms_vs_plain(),
            **layout_vs_plain()}
+    fused_one_launch()
     # each model's times right after its path, so Darknet's stay comparable
     # with runs that drive Darknet alone
     dark_model, _, _, dark_folded, dark_run, dark_launches = darknet_path()

@@ -4,7 +4,10 @@ Replaces ``yolojax/kernels/dwconv.py::dwconv3x3_pallas`` together with the
 folded epilogue the JAX engine runs after it (``engine.py::_post_conv``).
 The kernel (``csrc/dwconv3x3.cu``) is CUDA C++ for ``sm_90a``, built and
 loaded by ``kernels/_build.py``.  The plain version is ``F.conv2d`` with
-``groups=C`` followed by ``models.blocks.bias_leaky``.
+``groups=C`` followed by ``models.blocks.bias_leaky``.  :func:`dwconv3x3_taps`
+is the kernel's own op order in separate torch ops (an f32 sum over the nine
+shifted slices of the zero-padded input, dy outer, dx inner, a product then
+an add): the kernel's output is bit-identical to it.
 
 Layouts are the JAX kernel's: x (B, H, W, C) NHWC, taps (3, 3, C).  The
 engine's running tensor is NCHW in ``channels_last`` memory, so it hands its
@@ -22,10 +25,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..models.blocks import bias_leaky
+from ..models.blocks import bias_leaky, leaky_relu
 from . import _build
 
-__all__ = ["dwconv3x3", "dwconv3x3_plain", "build", "SOURCE"]
+__all__ = ["dwconv3x3", "dwconv3x3_plain", "dwconv3x3_taps", "build", "SOURCE"]
 
 SOURCE = _build.CSRC / "dwconv3x3.cu"
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
@@ -47,6 +50,26 @@ def dwconv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: i
     weight = w.permute(2, 0, 1).unsqueeze(1)          # (3, 3, C) → OIHW (C, 1, 3, 3)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=stride, padding=1, groups=c)
     return bias_leaky(y, b, act).permute(0, 2, 3, 1).contiguous()
+
+
+def dwconv3x3_taps(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
+                   act: bool = True) -> torch.Tensor:
+    """The tap-order reference: the kernel's arithmetic in separate torch ops.
+    Same arguments as :func:`dwconv3x3`.  ``acc + patch * tap`` is two ops,
+    so no multiply and add fuse into one rounding."""
+    bsz, h, wd, c = x.shape
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    taps = w.float()
+    acc = torch.zeros((bsz, ho, wo, c), dtype=torch.float32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            patch = xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
+            acc = acc + patch * taps[dy, dx]
+    z = acc.to(x.dtype).float() + b
+    if act:
+        z = leaky_relu(z)
+    return z.to(x.dtype)
 
 
 def _check(x, w, b, stride):

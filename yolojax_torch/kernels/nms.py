@@ -64,10 +64,10 @@ def nms_select(yx_min: torch.Tensor, yx_max: torch.Tensor, scores: torch.Tensor,
     if not (yx_min.device == yx_max.device == scores.device):
         raise ValueError(f"nms_select: tensors on {yx_min.device}, {yx_max.device}, "
                          f"{scores.device}")
-    smem = (5 * n + 2 * max_out) * 4
+    smem = 6 * n * 4     # corners, scores and the compacted list's indices
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"nms_select: {n} candidates and max_out {max_out} need {smem} B of "
-                         f"shared memory per block, over {_SMEM_LIMIT}")
+        raise ValueError(f"nms_select: {n} candidates need {smem} B of shared memory per "
+                         f"block, over {_SMEM_LIMIT}")
     g, dev = math.prod(lead), scores.device
     idx = torch.empty((g, max_out), dtype=torch.int32, device=dev)
     conf = torch.empty((g, max_out), dtype=torch.float32, device=dev)
