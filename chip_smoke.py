@@ -1,9 +1,11 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch / CUDA port (``yolojax_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # device, build, then a torch.profiler
-                                       # breakdown of MobileNet detect at batch 128
+    python3 chip_smoke.py                     # every phase below
+    python3 chip_smoke.py --profile [PATH]    # device, build, then a torch.profiler
+                                              # breakdown of PATH's detect at batch 128
+                                              # (mobilenet, darknet-s2d, tiny or darknet;
+                                              # mobilenet by default)
 
 Phases, each of which passes or raises (any failure exits non-zero):
 
@@ -37,8 +39,15 @@ Phases, each of which passes or raises (any failure exits non-zero):
      max_out 100 (and 300 at 19×19): idx, conf and valid identical; then the
      postprocess with its gather against the plain one;
    * maxpool2x2 and reorg_s2d — the five routed pool shapes at batch 8, c21's
-     (8,26,26,64), C = 3 and 72 and 2×2 inputs, f32 and bf16: bit-identical;
-4. Darknet main path — full-width Darknet-19 at 416, VOC classes and anchors,
+     (8,26,26,64) with the (8,13,13,1024) top, C = 3, 36 and 72, tails of 5
+     to 16 channels and 2×2 inputs, f32 and bf16, inputs with NaN, ±inf and
+     signed zeros: the bare kernels and their fused modes (the conv's bias +
+     leaky, the pool's full-resolution output, the reorg's concat)
+     bit-identical to their plain versions;
+4. the ``cuda`` tests — ``pytest -m cuda --noconftest`` over
+   ``tests/test_torch_cuda_*.py`` in a child process: every test passes,
+   none skips;
+5. Darknet main path — full-width Darknet-19 at 416, VOC classes and anchors,
    bf16, built from ``config.ini`` with a seeded fresh init (objectness bias
    −6, the bench density), through ``Inference.detect_fn(0.005, 0.45, 100)``
    on batches of 8; every launch counter is set to 0 just before and read
@@ -46,7 +55,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
    the outputs must be finite and ``keep`` must match the plain postprocess
    of the same raw head; then ``cli.detect.detect_image`` on one seeded
    480×640 image;
-5. MobileNet main path — full-width MobileNet-YOLOv2 at 416 from
+6. MobileNet main path — full-width MobileNet-YOLOv2 at 416 from
    ``config.ini`` + ``config/mobilenet.ini`` with ``pallas = nms fusedpost
    dwsep dwconv``, the same seeded init, density and checks: dwconv 4,
    dwsep 7 and fused 1 launch per batch; one more batch with the objectness
@@ -54,25 +63,31 @@ Phases, each of which passes or raises (any failure exits non-zero):
    postprocess; the raw head against the same forward without ``dwsep
    dwconv`` (cuDNN): f32 rtol/atol 1e-3 with TF32 off, bf16 mean abs diff
    ≤ 1 % of mean |raw|; then ``detect_image``;
-6. Darknet-s2d main path — Darknet-19 from ``config.ini`` with ``reorg =
+7. Darknet-s2d main path — Darknet-19 from ``config.ini`` with ``reorg =
    s2d`` and ``pallas = nms pool reorg``, the same init, density and
    checks: nms_select 1, maxpool2x2 3 and reorg_s2d 1 launch per batch; the
    dense batch; the raw head bit-identical to the same forward without
    ``pool reorg`` in f32 (TF32 off) and, where cuDNN allows, in bf16 (else
-   within MobileNet's 1 % bound, said so); then ``detect_image``;
-7. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
-   with ``pallas = nms fusedpost pool``: maxpool2x2 2 and fused 1 launch per
-   batch, a (B,13,13,125) raw head, the dense batch, the raw head against
-   the forward without ``pool`` as for Darknet-s2d, ``detect_image``;
-8. times (each model's right after its path) — CUDA events, warm-up, median
+   within MobileNet's 1 % bound, said so); ``torch.profiler`` over one
+   forward: the three pools and the reorg run their fused (bias)
+   instantiations, no ``aten::cat``, and the device kernels per forward with
+   and without ``pool reorg``; then ``detect_image``;
+8. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
+   with ``pallas = nms fusedpost pool``: maxpool2x2 2 (fused) and fused
+   decode+NMS 1 launch per batch, a (B,13,13,125) raw head, the dense batch,
+   the raw head against the forward without ``pool`` as for Darknet-s2d,
+   ``detect_image``;
+9. times (each model's right after its path) — CUDA events, warm-up, median
    of 7 (or of 8 taken in turns): each kernel against its plain version and,
    where one PyTorch call computes the TPU kernel's function, that call
-   (``F.conv2d`` with groups for dwconv3x3, ``F.max_pool2d``), at batch 8
-   and 128 (fused and nms_select on Darknet's raw and decoded heads, each
-   routed depthwise and pool shape, the reorg at c21's shape), each beside
-   its bound (bytes over 3.35 TB/s or operations over the peak of their
-   type, from this run's inputs; dwsep's layers also as TFLOP/s), and detect
-   images/s of each path, with and without its forward kernels.
+   (``F.conv2d`` with groups for dwconv3x3, ``F.max_pool2d`` on the
+   epilogue output), at batch 8 and 128 (fused and nms_select on Darknet's
+   raw and decoded heads, each routed depthwise shape, each routed pool as
+   the path runs it, on its conv's raw output, the fused reorg + concat at
+   c21's shape), each beside its bound (bytes over 3.35 TB/s or operations
+   over the peak of their type, from this run's inputs; dwsep's layers also
+   as TFLOP/s), and detect images/s of each path, with and without its
+   forward kernels.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, max abs err, ms, plain_ms, bound_ms, bound_by and library_ms at batch
@@ -107,10 +122,13 @@ TINY_TOKENS = "nms fusedpost pool"
 DWCONV_LAYERS = [(1, 104, 128, 128, 1), (1, 104, 128, 128, 2), (1, 52, 256, 256, 1),
                  (1, 52, 256, 256, 2)]
 DWSEP_LAYERS = [(5, 26, 512, 512, 1), (1, 26, 512, 1024, 2), (1, 13, 1024, 1024, 1)]
-# routed pools per forward, (H, C) of the input: Darknet's pool3-pool5, Tiny's pool4-pool5
-DARKNET_POOLS = [(104, 128), (52, 256), (26, 512)]
-TINY_POOLS = [(52, 128), (26, 256)]
+# routed pools per forward, (H, C) of the raw conv output before each and whether its
+# full epilogue output is kept (c13's, for the passthrough): Darknet's c5, c8 and c13
+# before pool3-pool5, Tiny's c4 and c5 before pool4-pool5
+DARKNET_POOLS = [(104, 128, False), (52, 256, False), (26, 512, True)]
+TINY_POOLS = [(52, 128, False), (26, 256, False)]
 REORG_SHAPE = (26, 64)      # c21's output at 416: (B, 26, 26, 64) -> (B, 13, 13, 256)
+REORG_TAIL = 1024           # the passthrough's top, (B, 13, 13, 1024), concatenated after it
 KERNELS = ("postprocess_fused", "dwconv3x3", "dwsep", "nms_select", "maxpool2x2", "reorg_s2d")
 
 
@@ -132,8 +150,9 @@ DWCONV_EXTRA = [(8, 27, 128, 128, 2), (8, 13, 1024, 1024, 2), (2, 13, 72, 72, 1)
                 (1, 600, 16, 16, 2)]
 DWSEP_EXTRA = [(8, 27, 64, 96, 2), (8, 13, 512, 1024, 2), (2, 13, 72, 40, 1), (2, 13, 36, 40, 1),
                (3, 13, 1024, 1024, 1), (128, 26, 512, 512, 1)]
-POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3)]
-REORG_EXTRA = [(2, 26, 26, 3), (2, 26, 26, 72), (2, 2, 2, 64), (2, 2, 2, 3)]
+# C = 3 and 36: not a whole 16-byte unit of channels (one-lane kernels)
+POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3), (2, 6, 6, 36)]
+REORG_EXTRA = [((2, 26, 26, 3), 5), ((2, 26, 26, 72), 16), ((2, 2, 2, 64), 8), ((2, 2, 2, 3), 6)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # an H100 SXM's published peaks: device memory
 # bytes/s, and flop/s by operand type (bf16 on the tensor cores, f32 on the
@@ -446,30 +465,63 @@ def check_bits(got, want, what: str) -> float:
 
 
 def layout_vs_plain() -> dict:
-    """maxpool2x2 and reorg_s2d against their plain versions: bit-identical."""
+    """maxpool2x2 and reorg_s2d against their plain versions, bit-identical:
+    the bare kernels, and their fused modes (bias + leaky; the pool's full
+    output; the reorg's concat) on raw inputs with NaN, ±inf and signed
+    zeros sprinkled in."""
     from yolojax_torch.kernels.pool import maxpool2x2, maxpool2x2_plain
-    from yolojax_torch.kernels.reorg import reorg_s2d
-    from yolojax_torch.ops.reorg import reorg_s2d as reorg_plain
+    from yolojax_torch.kernels.reorg import reorg_s2d, reorg_s2d_plain
 
     rng = np.random.default_rng(9)
     worst = {"maxpool2x2": 0.0, "reorg_s2d": 0.0}
-    cases = [("maxpool2x2", (8, h, h, c)) for h, c in DARKNET_POOLS + TINY_POOLS]
-    cases += [("maxpool2x2", shape) for shape in POOL_EXTRA]
-    cases += [("reorg_s2d", (8, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]))]
-    cases += [("reorg_s2d", shape) for shape in REORG_EXTRA]
-    for name, shape in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
-            if name == "maxpool2x2":
-                got, want = maxpool2x2(x), maxpool2x2_plain(x)
-            else:
-                got, want = reorg_s2d(x, 2), reorg_plain(x, 2)
-            torch.cuda.synchronize()
-            what = f"{name} {shape}->{tuple(want.shape)} {str(dtype)[6:]}"
-            worst[name] = max(worst[name], check_bits(got, want, what))
-            log(f"[kernel] {what}: bit-identical")
-    log(f"[kernel] pool and reorg: {2 * len(cases)} cases bit-identical to the plain versions")
+    pools = [(8, h, h, c) for h, c, _ in DARKNET_POOLS + TINY_POOLS] + POOL_EXTRA
+    reorgs = [((8, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]), REORG_TAIL)] + REORG_EXTRA
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in pools:
+            x = special(rng, shape, dtype)
+            bias = torch.from_numpy(rng.normal(0, 0.5, shape[-1]).astype(np.float32)).cuda()
+            for args in ((), (bias, True, False), (bias, True, True), (bias, False, True)):
+                got, want = maxpool2x2(x, *args), maxpool2x2_plain(x, *args)
+                torch.cuda.synchronize()
+                what = f"maxpool2x2 {shape} {str(dtype)[6:]} {pool_mode(args)}"
+                for g, w in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, want))):
+                    worst["maxpool2x2"] = max(worst["maxpool2x2"], check_bits(g, w, what))
+                cases += 1
+            log(f"[kernel] maxpool2x2 {shape}->{tuple(want[0].shape)} {str(dtype)[6:]}: bare "
+                "and fused (act, act + full, full without act) bit-identical")
+        for shape, ct in reorgs:
+            b, h, w, c = shape
+            x = special(rng, shape, dtype)
+            tail = special(rng, (b, h // 2, w // 2, ct), dtype)
+            bias = torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32)).cuda()
+            for args in ((), (tail,), (tail, bias, True), (tail, bias, False), (None, bias)):
+                got, want = reorg_s2d(x, 2, *args), reorg_s2d_plain(x, 2, *args)
+                torch.cuda.synchronize()
+                what = f"reorg_s2d {shape} {str(dtype)[6:]} {len(args)} extra arguments"
+                worst["reorg_s2d"] = max(worst["reorg_s2d"], check_bits(got, want, what))
+                cases += 1
+            log(f"[kernel] reorg_s2d {shape} tail {ct} {str(dtype)[6:]}: bare, with the "
+                "concat and with bias + leaky, bit-identical")
+    log(f"[kernel] pool and reorg: {cases} cases bit-identical to the plain versions")
     return worst
+
+
+def special(rng, shape, dtype) -> torch.Tensor:
+    """Seeded normal values on the card with NaN, ±inf and signed zeros in
+    one element of 64."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    picks = rng.choice(flat.size, size=max(1, flat.size // 64), replace=False)
+    flat[picks] = rng.choice(np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32),
+                             size=picks.size)
+    return torch.from_numpy(x).to("cuda", dtype)
+
+
+def pool_mode(args) -> str:
+    if not args:
+        return "bare"
+    return "fused" + (" act" if args[1] else "") + (" full" if args[2] else "")
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> list[float]:
@@ -658,11 +710,14 @@ def raw_vs_without(model, folded, config_fn, drop: set, what: str, exact: bool) 
                 f"diff {(got - want).abs().max().item():.4g} within rtol/atol 1e-3")
 
 
-def darknet_path():
+def darknet_config():
     from yolojax_torch.config import load_config
 
-    config = load_config(None)      # the repo's config.ini: Darknet-19, VOC, bf16, fusedpost
-    return drive(config, "darknet", DARKNET_LAUNCHES)
+    return load_config(None)      # the repo's config.ini: Darknet-19, VOC, bf16, fusedpost
+
+
+def darknet_path():
+    return drive(darknet_config(), "darknet", DARKNET_LAUNCHES)
 
 
 def mobilenet_config(tokens: str = MOBILENET_TOKENS, dtype: str = "bfloat16"):
@@ -843,51 +898,67 @@ def nms_times(model, folded, card: str) -> dict:
 
 
 def layout_times(card: str) -> dict:
-    """maxpool2x2 per routed shape (summed per Darknet and per Tiny forward)
-    against its plain version and ``F.max_pool2d``, and reorg_s2d at c21's
-    shape against its plain version, bf16, in turns."""
+    """The routed pools as the main paths run them, bf16, in turns: the fused
+    maxpool2x2 on each conv's raw output (with c13's full output) against its
+    plain version (``bias_leaky`` then ``F.max_pool2d``: torch's own ops, no
+    kernel of the port) and against ``F.max_pool2d`` alone on the epilogue
+    output (the one PyTorch call that computes the TPU kernel's function),
+    summed per Darknet and per Tiny forward; and the fused reorg + concat at
+    c21's shape against its plain version (``bias_leaky``, the view chain,
+    ``torch.cat``).  The bound counts the bytes each fused call must move."""
     import torch.nn.functional as F
 
     from yolojax_torch.kernels.pool import maxpool2x2, maxpool2x2_plain
-    from yolojax_torch.kernels.reorg import reorg_s2d
-    from yolojax_torch.ops.reorg import reorg_s2d as reorg_plain
+    from yolojax_torch.kernels.reorg import reorg_s2d, reorg_s2d_plain
+    from yolojax_torch.models.blocks import bias_leaky
 
     rng = np.random.default_rng(10)
     x_of = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
         "cuda", torch.bfloat16)
+    b_of = lambda c: torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32)).cuda()
     result = {}
     for b in TIME_BATCHES:
         for model_name, pools in (("Darknet", DARKNET_POOLS), ("Tiny", TINY_POOLS)):
             total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
             bound = Bound()
-            for h, c in pools:
-                x = x_of((b, h, h, c))
-                xc = x.permute(0, 3, 1, 2)
-                t_plain, t_kernel, t_lib = in_turns(lambda: maxpool2x2_plain(x),
-                                                    lambda: maxpool2x2(x),
-                                                    lambda: F.max_pool2d(xc, 2, 2))
+            for h, c, full in pools:
+                x, bias = x_of((b, h, h, c)), b_of(c)
+                y = bias_leaky(x.permute(0, 3, 1, 2), bias)
+                t_plain, t_kernel, t_lib = in_turns(
+                    lambda: maxpool2x2_plain(x, bias, True, full),
+                    lambda: maxpool2x2(x, bias, True, full),
+                    lambda: F.max_pool2d(y, 2, 2))
                 for key, t in zip(total, (t_kernel, t_plain, t_lib)):
                     total[key] += t
-                # three compares per output element
-                work = (nbytes(x) * 5 // 4, {"f32": 3 * x.numel() // 4})
+                # bytes: the raw output and the bias read, the pooled output (and
+                # the full one) written; operations: the epilogue (an add, a
+                # compare, a multiply) per element and three compares per output
+                moved = nbytes(x, bias) + nbytes(x) // 4 + (nbytes(x) if full else 0)
+                work = (moved, {"f32": 3 * x.numel() + 3 * x.numel() // 4})
                 layer = Bound().add(*work)
                 bound.add(*work)
-                log(f"[time] {card} | maxpool2x2 ({b},{h},{h},{c}) bf16: kernel {t_kernel:.4f} "
-                    f"ms = {nbytes(x) * 1.25 / 1e9 / (t_kernel / 1e3):.0f} GB/s, "
+                log(f"[time] {card} | maxpool2x2 fused ({b},{h},{h},{c}){' + full' * full} bf16: "
+                    f"kernel {t_kernel:.4f} ms = {moved / 1e9 / (t_kernel / 1e3):.0f} GB/s, "
                     f"{100 * layer.total / t_kernel:.1f} % of its bound {layer.total:.4f} ms; "
-                    f"plain {t_plain:.4f} ms, F.max_pool2d {t_lib:.4f} ms (median of 8 / 8)")
+                    f"plain (bias_leaky + F.max_pool2d) {t_plain:.4f} ms, F.max_pool2d alone "
+                    f"{t_lib:.4f} ms (median of 8 / 8)")
             result[("maxpool2x2", model_name, b)] = dict(total, bound_ms=bound.total,
                                                          bound_by=bound.by)
             log(f"[time] {card} | maxpool2x2 per {model_name}-416 forward at batch {b}: kernel "
                 f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, F.max_pool2d "
                 f"{total['library_ms']:.4f} ms, bound {bound.total:.4f} ms ({bound.by})")
         x = x_of((b, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]))
-        t_plain, t_kernel = in_turns(lambda: reorg_plain(x, 2), lambda: reorg_s2d(x, 2))
-        bound = Bound().add(2 * nbytes(x))
+        tail, bias = x_of((b, REORG_SHAPE[0] // 2, REORG_SHAPE[0] // 2, REORG_TAIL)), b_of(64)
+        t_plain, t_kernel = in_turns(lambda: reorg_s2d_plain(x, 2, tail, bias),
+                                     lambda: reorg_s2d(x, 2, tail, bias))
+        moved = nbytes(x, tail, bias) + nbytes(x, tail)
+        bound = Bound().add(moved, {"f32": 3 * x.numel()})
         result[("reorg_s2d", b)] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": None,
                                     "bound_ms": bound.total, "bound_by": bound.by}
-        log(f"[time] {card} | reorg_s2d {tuple(x.shape)} bf16: kernel {t_kernel:.4f} ms, plain "
-            f"{t_plain:.4f} ms (median of 8 / 8); bound {bound.total:.5f} ms by bytes; no "
+        log(f"[time] {card} | reorg_s2d fused {tuple(x.shape)} + concat {tuple(tail.shape)} "
+            f"bf16: kernel {t_kernel:.4f} ms = {moved / 1e9 / (t_kernel / 1e3):.0f} GB/s, "
+            f"{100 * bound.total / t_kernel:.1f} % of its bound {bound.total:.5f} ms; plain "
+            f"(bias_leaky, view chain, torch.cat) {t_plain:.4f} ms (median of 8 / 8); no "
             "PyTorch call computes it (pixel_unshuffle orders channels c*4+p*2+q)")
     return result
 
@@ -920,11 +991,12 @@ def host_split(card: str) -> dict:
     group, smem = pf.layout(845, 20, 8, torch.cuda.get_device_properties(0).multi_processor_count)
     fused_args = (raw.data_ptr(), anchors.data_ptr(), *(t.data_ptr() for t in out), 8, 13, 13, 5,
                   20, group, smem, THRESHOLD, OVERLAP, TOPK, 1)
+    bias = torch.from_numpy(rng.normal(0, 0.5, 128).astype(np.float32)).cuda()
     xc = x.permute(0, 3, 1, 2)
     y = pool.maxpool2x2(x)
     shape, dev = tuple(y.shape), x.device
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib = _build.load(pool.SOURCE, {"yolo_maxpool2x2": [ptr, ptr, i32, i32, i32, i32, i32, ptr]})
+    lib = _build.load(pool.SOURCE, {"yolo_maxpool2x2": [ptr, ptr, ptr, ptr, *[i32] * 6, ptr]})
     stream = torch.cuda.current_stream(dev).cuda_stream
     xp, yp = x.data_ptr(), y.data_ptr()
     raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
@@ -945,12 +1017,13 @@ def host_split(card: str) -> dict:
         "torch.empty(out)": lambda: torch.empty(shape, dtype=x.dtype, device=dev),
         "x.new_empty(out)": lambda: x.new_empty(shape),
         "data_ptr() of x and out": lambda: (x.data_ptr(), y.data_ptr()),
-        "ctypes call with its launch": lambda: lib.yolo_maxpool2x2(xp, yp, 8, 52, 52, 128, 1,
-                                                                   stream),
+        "ctypes call with its launch": lambda: lib.yolo_maxpool2x2(xp, None, yp, None, 8, 52,
+                                                                   52, 128, 1, 1, stream),
         "Kernel call: lookups, ctypes call, launch, error check": lambda: pool._KERNEL(
-            x, xp, yp, 8, 52, 52, 128, 1),
+            x, xp, None, yp, None, 8, 52, 52, 128, 1, 1),
         "the engine's two permutes": lambda: xc.permute(0, 2, 3, 1).permute(0, 3, 1, 2),
         "maxpool2x2(x), the whole wrapper": lambda: pool.maxpool2x2(x),
+        "maxpool2x2(x, bias), the fused wrapper": lambda: pool.maxpool2x2(x, bias),
         "the engine's call, permutes and wrapper": lambda: pool.maxpool2x2(
             xc.permute(0, 2, 3, 1)).permute(0, 3, 1, 2),
         "F.max_pool2d(x_nchw, 2, 2)": lambda: F.max_pool2d(xc, 2, 2),
@@ -979,26 +1052,36 @@ def host_split(card: str) -> dict:
     return result
 
 
-def profile(card: str) -> None:
-    """torch.profiler over 5 MobileNet detect calls at batch 128, with the
-    dw kernels and on the cuDNN path: device time by kernel."""
+# --profile's paths: (config, the forward kernels' tokens the second run drops)
+PROFILE_PATHS = {"mobilenet": (lambda: mobilenet_config(), DW_TOKENS),
+                 "darknet-s2d": (lambda: s2d_config(), {"pool", "reorg"}),
+                 "tiny": (lambda: tiny_config(), {"pool"}),
+                 "darknet": (lambda: darknet_config(), set())}
+
+
+def profile(card: str, path: str) -> None:
+    """torch.profiler over 5 detect calls of ``path`` at batch 128, with its
+    forward kernels and without them: device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from yolojax_torch.cli.common import build, load_weights_auto
     from yolojax_torch.models.inference import Inference
 
-    config = mobilenet_config()
+    config_fn, drop = PROFILE_PATHS[path]
+    config = config_fn()
     _, _, model = build(config)
     params, state, _ = load_weights_auto(config, model, rng_seed=0, device="cuda")
     params["out"]["b"].view(-1, 5 + model.num_classes)[:, 4] = BENCH_OBJECTNESS
     folded = model.fold(params, state)
-    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (128, SIZE, SIZE, 3))
-                         .astype(np.float32)).cuda()
+    x = seeded_images(3, 128)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start-up
         Inference(model).detect_fn(THRESHOLD, OVERLAP, TOPK)(folded, x)
         torch.cuda.synchronize()
-    for what, m in (("dwsep+dwconv", model), ("cuDNN path", without(model, DW_TOKENS))):
+    runs = [(" ".join(sorted(model.pallas)), model)]
+    if drop:
+        runs.append((f"without {' '.join(sorted(drop))}", without(model, drop)))
+    for what, m in runs:
         run = Inference(m).detect_fn(THRESHOLD, OVERLAP, TOPK)
         for _ in range(3):
             run(folded, x)
@@ -1015,30 +1098,93 @@ def profile(card: str) -> None:
         if device_us <= 0:
             raise AssertionError("torch.profiler recorded no device time; time with CUDA "
                                  "events instead")
-        log(f"[profile] {card} | MobileNet detect batch 128, {what}: {device_us / 1e3:.3f} ms "
-            f"of device time per call, {wall:.3f} ms wall under the profiler, "
-            f"{sum(e.count for e in kernels) / 5:.0f} kernel launches per call")
+        log(f"[profile] {card} | {path} detect batch 128 at {SIZE}, {what}: "
+            f"{device_us / 1e3:.3f} ms of device time per call, {wall:.3f} ms wall under the "
+            f"profiler, {sum(e.count for e in kernels) / 5:.0f} kernel launches per call")
         for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:16]:
             share = 100 * e.self_device_time_total / 5 / device_us
             log(f"[profile]   {share:6.2f} %  {e.self_device_time_total / 5 / 1e3:8.3f} ms  "
                 f"x{e.count / 5:<5.0f} {e.key[:100]}")
 
 
+def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) -> None:
+    """torch.profiler over one batch-8 forward: every pool and reorg kernel
+    the path launches must be its fused (bias) instantiation, and the
+    forward must call no ``aten::cat``; prints the device kernels per
+    forward with the path's kernels and without ``drop``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    x = seeded_images(4, 8)
+    counts = {}
+    for label, m in (("with", model), ("without", without(model, drop))):
+        with torch.inference_mode():
+            m.apply_folded(folded, x)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                m.apply_folded(folded, x)
+                torch.cuda.synchronize()
+        events = prof.events()
+        device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        counts[label] = len(device)
+        if label == "without":
+            break
+        # the template's bool kBias: "true" demangled, "Lb1E" mangled
+        fused = lambda n: "true" in n or "Lb1E" in n
+        got = {"maxpool2x2": [n for n in device if "maxpool2x2_kernel" in n],
+               "reorg_s2d": [n for n in device if "reorg_s2d_kernel" in n]}
+        cats = sum(e.name == "aten::cat" for e in events)
+        if (len(got["maxpool2x2"]) != pools or len(got["reorg_s2d"]) != reorgs
+                or not all(fused(n) for names in got.values() for n in names) or cats):
+            raise AssertionError(f"{what}: one forward ran {got} and {cats} aten::cat; expected "
+                                 f"{pools} fused pools, {reorgs} fused reorgs and no cat")
+    log(f"[{what}] one batch-8 forward: {pools} maxpool2x2 and {reorgs} reorg_s2d launches, "
+        f"all with the conv's epilogue, no aten::cat; {counts['with']} device kernels per "
+        f"forward ({counts['without']} without {' '.join(sorted(drop))})")
+
+
+def cuda_tests() -> None:
+    """The ``cuda``-marked tests, ``tests/test_torch_cuda_*.py``, on this card
+    in a child pytest (``--noconftest``: the tests' conftest sets JAX up for
+    the CPU tests).  Every test must pass; none may skip."""
+    files = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "tests").glob("test_torch_cuda_*.py"))
+    if not files:
+        raise AssertionError("no tests/test_torch_cuda_*.py in this checkout")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pytest", "-m", "cuda", "--noconftest", "-p",
+                           "no:cacheprovider", "-q", *files], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900, check=False)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    if proc.returncode != 0 or "passed" not in summary or any(
+            word in summary for word in ("failed", "skipped", "error")):
+        log("\n".join(lines[-60:] + proc.stderr.strip().splitlines()[-20:]))
+        raise AssertionError(f"pytest -m cuda exited {proc.returncode}: {summary}")
+    log(f"[cuda tests] {' '.join(files)}: {summary} (one pytest, "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
+    args = sys.argv[1:]
+    if args[:1] == ["--profile"] and len(args) <= 2:
+        path = args[1] if len(args) == 2 else "mobilenet"
+        if path not in PROFILE_PATHS:
+            raise SystemExit(f"chip_smoke: --profile takes one of {sorted(PROFILE_PATHS)}")
+    elif args:
+        raise SystemExit(f"chip_smoke: unknown arguments {args}; see the docstring")
     name, card = check_device()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     build_kernels()
-    if sys.argv[1:] == ["--profile"]:
-        profile(card)
+    if args:
+        profile(card, path)
         return
-    if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; see --help in the source")
     t0 = time.perf_counter()
     host_split(card)
     err = {"postprocess_fused": fused_vs_plain(), **dw_vs_plain(), "nms_select": nms_vs_plain(),
            **layout_vs_plain()}
     fused_one_launch()
+    cuda_tests()
     # each model's times right after its path, so Darknet's stay comparable
     # with runs that drive Darknet alone
     dark_model, _, _, dark_folded, dark_run, dark_launches = darknet_path()
@@ -1051,11 +1197,13 @@ def main() -> None:
     del mob_model, mob_folded, mob_run
     s2d_model, s2d_folded, s2d_run, s2d_launches = kernel_path(
         "darknet-s2d", s2d_config, S2D_LAUNCHES, {"pool", "reorg"}, exact=True)
+    fused_routing(s2d_model, s2d_folded, "darknet-s2d", {"pool", "reorg"}, 3, 1)
     nms_t = nms_times(s2d_model, s2d_folded, card)
     detect_times(s2d_model, s2d_folded, s2d_run, {"pool", "reorg"}, "Darknet-s2d", card)
     del s2d_model, s2d_folded, s2d_run
     tiny_model, tiny_folded, tiny_run, tiny_launches = kernel_path(
         "tiny", tiny_config, TINY_LAUNCHES, {"pool"}, exact=True)
+    fused_routing(tiny_model, tiny_folded, "tiny", {"pool"}, 2, 0)
     detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
     del tiny_model, tiny_folded, tiny_run
     layout_t = layout_times(card)
@@ -1065,7 +1213,8 @@ def main() -> None:
     # plain_ms, library_ms and bound_ms at batch 8: fused on Darknet's raw
     # head, nms_select on Darknet-s2d's decoded head, dwconv3x3 and dwsep
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
-    # one Darknet-416 forward's routed pools, reorg_s2d at c21's shape
+    # one Darknet-416 forward's routed pools (fused, on the convs' raw
+    # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]

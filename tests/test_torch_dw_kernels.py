@@ -8,8 +8,7 @@ Tolerances: f32 rtol/atol 1e-4 (the JAX tests' bound, tests/test_kernels.py
 :96, :260: nine taps and a C-term pointwise sum in other orders); bf16
 rtol/atol 1e-2, about one bf16 ulp, because a sum that lands next to a
 rounding boundary may round the other way.  The CUDA kernels are compared
-with their plain versions in the tests marked ``cuda``, which skip without
-a card.
+with their plain versions on the card in ``tests/test_torch_cuda_kernels.py``.
 """
 
 import shutil
@@ -181,52 +180,6 @@ def test_build_caches_each_source_under_its_hash(tmp_path, monkeypatch):
     assert len(calls.read_text().split()) == 2                 # no second nvcc run
 
 
-# -- on the card -------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU interpret mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("stride,shape", [(1, (8, 104, 104, 128)), (2, (8, 52, 52, 256)),
-                                          (2, (2, 27, 27, 128)), (1, (2, 13, 13, 72)),
-                                          (2, (2, 13, 13, 36))])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_dwconv_matches_plain_version(rng, cuda_device, stride, shape, dtype):
-    x, w, b = _dw_inputs(rng, shape)
-    x, w = (_as(a, dtype).to(cuda_device) for a in (x, w))
-    b = torch.from_numpy(b).to(cuda_device)
-    before = dk.dwconv3x3.launches
-    got = dk.dwconv3x3(x, w, b, stride)
-    torch.cuda.synchronize()
-    assert dk.dwconv3x3.launches == before + 1
-    want = dk.dwconv3x3_plain(x, w, b, stride)
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("stride,shape,cout", [(1, (8, 26, 26, 512), 512),
-                                               (2, (8, 26, 26, 512), 1024),
-                                               (1, (8, 13, 13, 1024), 1024),
-                                               (2, (8, 27, 27, 64), 96), (1, (2, 13, 13, 72), 40)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_dwsep_matches_plain_version(rng, cuda_device, stride, shape, cout, dtype):
-    x, wd, bd, wp, bp = _dwsep_inputs(rng, shape, cout)
-    x, wd, wp = (_as(a, dtype).to(cuda_device) for a in (x, wd, wp))
-    bd, bp = (torch.from_numpy(a).to(cuda_device) for a in (bd, bp))
-    before = sk.dwsep.launches
-    got = sk.dwsep(x, wd, bd, wp, bp, stride)
-    torch.cuda.synchronize()
-    assert sk.dwsep.launches == before + 1
-    want = sk.dwsep_plain(x, wd, bd, wp, bp, stride)
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
 # -- the shared launch path and the bf16 kernel's layouts --------------------
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -263,21 +216,3 @@ def test_engine_stores_the_pointwise_weights_in_both_layouts():
         assert torch.equal(lq["w_oi"], lq["w"][:, :, 0, 0]) and lq["w_oi"].is_contiguous()
         assert torch.equal(lq["w_io"], lq["w"][:, :, 0, 0].t()) and lq["w_io"].is_contiguous()
     assert "w_oi" not in folded["pw2"]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,c,cout", [(3, 13, 1024, 1024), (128, 26, 512, 512)])
-def test_cuda_dwsep_bf16_at_ragged_and_full_batch(rng, cuda_device, b, h, c, cout):
-    """B=3 at 13×13 leaves a last pixel tile that is not full (507 pixels);
-    B=128 is the main path's throughput batch.  With and without the engine's
-    (Cout, C) copy of the weights."""
-    x, wd, bd, wp, bp = _dwsep_inputs(rng, (b, h, h, c), cout)
-    x, wd, wp = (_as(a, "bfloat16").to(cuda_device) for a in (x, wd, wp))
-    bd, bp = (torch.from_numpy(a).to(cuda_device) for a in (bd, bp))
-    want = sk.dwsep_plain(x, wd, bd, wp, bp, 1)
-    for wp_t in (None, wp.t().contiguous()):
-        got = sk.dwsep(x, wd, bd, wp, bp, 1, wp_t)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-    with pytest.raises(ValueError, match="wp_t"):
-        sk.dwsep(x, wd, bd, wp, bp, 1, wp.t())                   # not contiguous

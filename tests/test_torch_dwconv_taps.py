@@ -5,7 +5,8 @@ separate torch ops: an f32 sum from 0 over the nine shifted slices of the
 zero-padded input, dy outer and dx inner, each a product then an add; the
 sum rounded to the compute dtype, then + bias and leaky in f32, rounded
 again.  On the card the kernel must be bit-identical to it (the test marked
-``cuda`` below, and ``chip_smoke.py``).  Here it is held:
+``cuda`` in ``tests/test_torch_cuda_kernels.py``, and ``chip_smoke.py``).
+Here it is held:
 
 * bit for bit to the same order written in numpy float32 (each ``*`` and
   ``+`` one IEEE rounding, no fused multiply-add);
@@ -93,26 +94,3 @@ def test_taps_reference_matches_the_pallas_kernel(rng, dtype, stride, shape):
     got = dk.dwconv3x3_taps(x, w, b, stride)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype], atol=TOL[dtype])
-
-
-# -- on the card -------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU interpret mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("stride,shape", [(1, (8, 104, 104, 128)), (2, (8, 104, 104, 128)),
-                                          (1, (8, 52, 52, 256)), (2, (8, 52, 52, 256)),
-                                          (1, (2, 37, 29, 128)), (2, (2, 13, 13, 72))])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_is_bit_identical_to_the_taps_reference(rng, cuda_device, dtype, stride,
-                                                            shape):
-    x, w, b = (t.to(cuda_device) for t in _inputs(rng, shape, dtype))
-    got = dk.dwconv3x3(x, w, b, stride)
-    want = dk.dwconv3x3_taps(x, w, b, stride)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)

@@ -1,11 +1,12 @@
-"""The port stands alone: no module of yolojax_torch, and not chip_smoke.py,
-imports the JAX package or jax.
+"""The port stands alone: no module of yolojax_torch, not chip_smoke.py and
+not the card's tests (``tests/test_torch_cuda_*.py``, which run where JAX is
+not installed) imports the JAX package or jax.
 
 Each file's AST is walked for ``import yolojax…``, ``from yolojax…`` and
 ``import jax…`` / ``from jax…`` (``yolojax_torch`` itself is allowed).  A
 second check imports every module of the port in a fresh interpreter in
 which importing ``yolojax`` or ``jax`` raises, so an import hidden behind a
-call or a string fails too.
+call or a string fails too; so does every card test file.
 """
 
 import ast
@@ -17,7 +18,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "yolojax_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CUDA_TESTS = sorted((ROOT / "tests").glob("test_torch_cuda_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + CUDA_TESTS
 FORBIDDEN = ("yolojax", "jax")
 
 
@@ -37,7 +39,8 @@ def test_the_walk_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"yolojax_torch/config.py", "yolojax_torch/category.py",
             "yolojax_torch/cli/__init__.py", "yolojax_torch/utils/visualize.py",
-            "yolojax_torch/kernels/_build.py", "chip_smoke.py"} <= names
+            "yolojax_torch/kernels/_build.py", "chip_smoke.py",
+            "tests/test_torch_cuda_kernels.py", "tests/test_torch_cuda_nms_pool_reorg.py"} <= names
     assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
     # the check itself: a forbidden import is found, the port's own is not
     assert _forbidden("yolojax.config") and _forbidden("jax.numpy") and _forbidden("jax")
@@ -64,6 +67,9 @@ import yolojax_torch
 for info in pkgutil.walk_packages(yolojax_torch.__path__, "yolojax_torch."):
     importlib.import_module(info.name)
 import chip_smoke
+sys.path.insert(0, sys.argv[1] + "/tests")
+for name in sys.argv[2:]:
+    importlib.import_module(name)
 from yolojax_torch.cli import common, detect, make_parser, setup
 config = setup(make_parser("x").parse_args(["-m", "model/pallas=nms fusedpost pool"]))
 category, anchors, model = common.build(config)
@@ -73,7 +79,7 @@ print("standalone", type(model).__name__)
 
 
 def test_the_port_imports_and_builds_with_yolojax_and_jax_blocked():
-    proc = subprocess.run([sys.executable, "-c", BLOCKER, str(ROOT)], capture_output=True,
-                          text=True, timeout=300, cwd=ROOT)
+    proc = subprocess.run([sys.executable, "-c", BLOCKER, str(ROOT), *(p.stem for p in CUDA_TESTS)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "standalone Darknet" in proc.stdout

@@ -6,7 +6,7 @@ run in interpret mode, as tests/test_kernels.py runs it.  Tolerances: ``keep``
 and pick order exact; conf rtol 1e-5 (2e-5 at C=80, where the Pallas kernel's
 class-order softmax sum and the plain version's reduction round differently);
 corners atol 1e-5 on kept slots.  The CUDA kernel itself is compared with
-the plain version in the tests marked ``cuda``, which skip without a card.
+the plain version on the card in ``tests/test_torch_cuda_kernels.py``.
 """
 
 import numpy as np
@@ -91,33 +91,3 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         pf.build()
     assert not list(tmp_path.glob("*.so"))
-
-
-# -- on the card -------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU interpret mode)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,a,c,objectness", [
-    (8, 13, 13, 5, 20, -6.0), (8, 13, 13, 5, 20, None), (8, 19, 19, 5, 20, -6.0),
-    (2, 13, 13, 5, 80, None), (1, 4, 3, 2, 3, None),
-])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain_version(rng, cuda_device, b, h, w, a, c, objectness,
-                                           dtype):
-    anchors = rng.uniform(0.5, 4.0, (a, 2)).astype(np.float32)
-    raw = torch.from_numpy(_raw(rng, b, h, w, a, c, objectness)).to(cuda_device,
-                                                                     getattr(torch, dtype))
-    before = pf.postprocess_fused.launches
-    got = pf.postprocess_fused(raw, anchors, 0.005, 0.45, 100)
-    torch.cuda.synchronize()
-    assert pf.postprocess_fused.launches == before + 1
-    want = postprocess_raw(raw, anchors, 0.005, 0.45, 100)
-    _assert_same_picks(_numpy(got), _numpy(want), 2e-5 if c == 80 else 1e-5)

@@ -11,8 +11,9 @@ pool reorg`` at 64² in f32, with the same seeded weights carried over by
 ``checkpoint.from_jax``: raw heads rtol/atol 1e-3 (test_torch_mobilenet.py's
 bound: 23 convolutions summed in other orders), and the postprocess fed one
 raw head: ``keep`` identical, conf and corners atol 1e-5.  The CUDA kernels
-are compared with their plain versions in the tests marked ``cuda``, which
-skip without a card.
+are compared with their plain versions on the card in
+``tests/test_torch_cuda_nms_pool_reorg.py``; the fused pool and reorg modes
+against JAX in ``tests/test_torch_fused_pool_reorg.py``.
 """
 
 import shutil
@@ -333,53 +334,3 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     second = _build.build(source)
     assert second != first and first.exists() and second.exists()
     assert second == _build.library_path(source)
-
-
-# -- on the card -------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU interpret mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("box_lead", [(8, 1), (8, 20)])
-def test_cuda_nms_select_matches_plain_version(rng, cuda_device, box_lead):
-    n = 845
-    yx_min, yx_max = (torch.from_numpy(a).to(cuda_device) for a in _boxes(rng, (*box_lead, n)))
-    scores = torch.from_numpy(rng.uniform(0, 1, (8, 20, n)).astype(np.float32) ** 4)
-    scores = scores.to(cuda_device)
-    before = nk.nms_select.launches
-    got = nk.nms_select(yx_min, yx_max, scores, 0.005, 0.45, 100)
-    torch.cuda.synchronize()
-    assert nk.nms_select.launches == before + 1
-    from yolojax_torch.ops.nms import nms_select as plain
-
-    for g, w in zip(got, plain(yx_min, yx_max, scores, 0.005, 0.45, 100)):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 104, 104, 128), (8, 26, 26, 512), (2, 2, 2, 72),
-                                   (2, 6, 4, 3)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_maxpool_matches_plain_version(rng, cuda_device, shape, dtype):
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    x = x.to(cuda_device, DTYPES[dtype][0])
-    got = pk.maxpool2x2(x)
-    torch.cuda.synchronize()
-    assert torch.equal(got, pk.maxpool2x2_plain(x))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 26, 26, 64), (2, 26, 26, 3), (2, 26, 26, 72),
-                                   (2, 2, 2, 64)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_reorg_matches_plain_version(rng, cuda_device, shape, dtype):
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    x = x.to(cuda_device, DTYPES[dtype][0])
-    got = rk.reorg_s2d(x, 2)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ops_reorg.reorg_s2d(x, 2))

@@ -87,9 +87,9 @@ def _defs(model):
 def _spy(monkeypatch, module, name, log):
     fn = getattr(module, name)
 
-    def spy(x):
+    def spy(x, *args):
         log.append(tuple(x.shape))
-        return fn(x)
+        return fn(x, *args)
 
     monkeypatch.setattr(module, name, spy)
 

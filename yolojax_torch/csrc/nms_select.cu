@@ -15,9 +15,12 @@
 // which suited its sequential grid).  The CTA loads the row's four corners
 // and scores into shared memory, then greedy_nms.cuh's block_nms: warp 0
 // compacts the scores above the threshold (with their indices, N more ints:
-// 6*N floats in all, 20 KB at N = 845, 43 KB at N = 1805), and the greedy
-// loop runs on that list, by warp 0 alone (no block barrier) or, for a long
-// list, by the whole block.
+// 6*N floats in all, 20 KB at N = 845, 43 KB at N = 1805, 87 KB at N = 3645),
+// and the greedy loop runs on that list, by warp 0 alone (no block barrier)
+// or, for a long list, by the whole block.  The kernel opts in to the card's
+// whole shared memory less its static part (~227 KB on an H100, N up to
+// ~9 600) on each device's first launch, as the fused kernel does; the TPU
+// kernel padded N and had no cap.
 //
 // What bounds it on this card: the latency of the pick chain, one pass over
 // the compacted list per pick, not bytes -- a row reads 20 bytes per
@@ -76,14 +79,48 @@ nms_select_kernel(const float4* __restrict__ boxes, const float* __restrict__ sc
   if (threadIdx.x == 0) out_count[row] = count;
 }
 
+// The dynamic shared memory a block of nms_select_kernel may take on the
+// current device: the card's opt-in limit less the kernel's static part.  The
+// first call on a device also opts the kernel in to that much (above 48 KB a
+// launch needs it), so it comes before the first launch there.
+int smem_limit(int* out) {
+  static int limits[64];   // per device; 0 until the device is configured
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!limits[dev]) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, nms_select_kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int limit = optin - static_cast<int>(attr.sharedSizeBytes);
+    err = cudaFuncSetAttribute(nms_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limits[dev] = limit;
+  }
+  *out = limits[dev];
+  return 0;
+}
+
 }  // namespace
+
+// Writes to *limit the shared memory bytes a block may take on the current
+// device (see smem_limit); returns a CUDA error code.  The stream is unused:
+// the argument keeps the launch entry points' shape.
+extern "C" int yolo_nms_select_smem_limit(int* limit, void*) { return smem_limit(limit); }
 
 // Launch on `stream` without synchronising; returns cudaGetLastError().
 // boxes must be 16-byte aligned; shared memory is 6*N floats, which the
-// caller keeps under 48 KB.
+// caller keeps within yolo_nms_select_smem_limit.
 extern "C" int yolo_nms_select(const void* boxes, const float* scores, const int* box_row,
                                int* out_idx, float* out_conf, int* out_count, int rows, int n,
                                float threshold, float overlap, int max_out, void* stream) {
+  int limit = 0;
+  const int err = smem_limit(&limit);   // opts in on the device's first launch
+  if (err) return err;
   const size_t smem = 6 * static_cast<size_t>(n) * sizeof(float);
   nms_select_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), scores, box_row, out_idx, out_conf, out_count, n,

@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BNConfig", "fold_bn", "leaky_relu", "bias_leaky", "conv_bias_leaky", "max_pool"]
+__all__ = ["BNConfig", "fold_bn", "leaky_relu", "bias_leaky", "conv", "conv_bias_leaky",
+           "max_pool"]
 
 
 def leaky_relu(x, slope=0.1):
@@ -79,11 +80,15 @@ def bias_leaky(y, b, act: bool = True):
     return z.to(y.dtype)
 
 
+def conv(x, w, *, stride: int = 1, groups: int = 1):
+    """The conv of a folded block, without its epilogue: in the compute dtype
+    (``x``'s and ``w``'s), symmetric padding ``k//2``."""
+    return F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=groups)
+
+
 def conv_bias_leaky(x, w, b, *, stride: int = 1, groups: int = 1, act: bool = True):
-    """Folded block: conv in the compute dtype (``x``'s and ``w``'s), then
-    :func:`bias_leaky`.  Padding is symmetric ``k//2``."""
-    y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=groups)
-    return bias_leaky(y, b, act)
+    """Folded block: :func:`conv`, then :func:`bias_leaky`."""
+    return bias_leaky(conv(x, w, stride=stride, groups=groups), b, act)
 
 
 def max_pool(x, size: int = 2, stride: int | None = None):

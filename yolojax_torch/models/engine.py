@@ -23,6 +23,18 @@ of lane-aligned channels and even H, W runs in the pool kernel; with
 kernel (the darknet order has no kernel).  The kernels take NHWC tensors,
 which are the running tensor's own bytes, so both permutes around a call are
 views.
+
+Where routing goes further than the JAX engine's:
+
+* a conv on cuDNN followed by a routed pool, directly or with one ``mark``
+  between, hands its raw output and bias to the pool kernel, which runs the
+  conv's bias + leaky epilogue (and, for the mark, writes its full-resolution
+  output into the slot); a conv followed by a routed reorg does the same with
+  the reorg kernel, which also writes the ``concat`` right after it.  Both
+  compute what the unfused ops compute, bit for bit;
+* in bf16 a depthwise pair wider than ``dwsep.MAX_BF16_CHANNELS`` does not
+  go to the dwsep kernel (the JAX engine's ``engine.py:92-106`` routes it)
+  but takes the unpaired route, which computes the same function.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ from ..kernels import pool as pool_k
 from ..kernels import reorg as reorg_k
 from ..ops.reorg import reorg
 from . import LayerDef, kernel_active
-from .blocks import BNConfig, conv_bias_leaky, fold_bn, max_pool
+from .blocks import BNConfig, bias_leaky, conv, fold_bn, max_pool
 
 __all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights"]
 
@@ -86,12 +98,15 @@ def _pointwise_after(plan, i) -> LayerDef | None:
     return None
 
 
-def _dwsep_pair(plan, i, height: int) -> LayerDef | None:
+def _dwsep_pair(plan, i, height: int, dtype) -> LayerDef | None:
     """Pointwise partner of the depthwise conv ``plan[i]`` when the pair goes
     to the dwsep kernel (``engine.py:92-106``): the dw conv has leaky and an
-    input height ``≤ DWSEP_MAX_H``."""
+    input height ``≤ DWSEP_MAX_H``; in bf16 its channels are at most
+    ``dwsep.MAX_BF16_CHANNELS``, which the JAX engine does not ask."""
     d = plan[i][1]
     if not (_dw_routable(d) and d.act and height <= DWSEP_MAX_H):
+        return None
+    if dtype == torch.bfloat16 and d.in_ch > dwsep_k.MAX_BF16_CHANNELS:
         return None
     return _pointwise_after(plan, i)
 
@@ -103,6 +118,16 @@ def _pool_routable(x, size: int, stride: int) -> bool:
     reads ``x.shape[-1]``, ``x.shape[1]`` and ``x.shape[2]`` of an NHWC array)."""
     return (size == 2 and stride == 2 and x.shape[1] % 128 == 0
             and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
+
+def _after_conv(plan, i):
+    """What follows the conv ``plan[i]``, for the kernels that take its
+    epilogue: (the key of a ``mark`` right after it or None, the index of the
+    next other op, that op or None)."""
+    j, key = i + 1, None
+    if j < len(plan) and plan[j][0] == "mark":
+        key, j = plan[j][1], j + 1
+    return key, j, plan[j] if j < len(plan) else None
 
 
 def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat16,
@@ -122,9 +147,9 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
     use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
     slots = {}
     x = x.to(compute_dtype).permute(0, 3, 1, 2)
-    skip = -1
+    resume = 0   # ops before this index ran fused into an earlier one
     for i, op in enumerate(plan):
-        if i == skip:
+        if i < resume:
             continue
         kind = op[0]
         if kind == "conv":
@@ -132,18 +157,35 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
             p = folded[d.name]
             # x is NCHW-shaped, so its height is x.shape[2] (the JAX engine
             # reads x.shape[1] of an NHWC array)
-            n = _dwsep_pair(plan, i, x.shape[2]) if use_dwsep else None
+            n = _dwsep_pair(plan, i, x.shape[2], x.dtype) if use_dwsep else None
             if n is not None:
                 q = folded[n.name]
                 x = dwsep_k.dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
                                   d.stride, q["w_oi"]).permute(0, 3, 1, 2)
-                skip = i + 1
-            elif use_dw_k and _dw_routable(d):
+                resume = i + 2
+                continue
+            if use_dw_k and _dw_routable(d):
                 x = dwconv_k.dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
                                        d.act).permute(0, 3, 1, 2)
+                continue
+            y = conv(x, p["w"], stride=d.stride, groups=d.groups)
+            key, j, nxt = _after_conv(plan, i)
+            if (use_pool_k and nxt is not None and nxt[0] == "pool"
+                    and _pool_routable(y, nxt[1], nxt[2])):
+                out = pool_k.maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
+                if key is not None:
+                    out, full = out
+                    slots[key] = full.permute(0, 3, 1, 2)
+                x = out.permute(0, 3, 1, 2)
+                resume = j + 1
+            elif use_reorg_k and key is None and nxt is not None and nxt[0] == "reorg":
+                cat = plan[j + 1] if j + 1 < len(plan) and plan[j + 1][0] == "concat" else None
+                tail = None if cat is None else slots[cat[1]].permute(0, 2, 3, 1)
+                x = reorg_k.reorg_s2d(y.permute(0, 2, 3, 1), nxt[1], tail, p["b"],
+                                      d.act).permute(0, 3, 1, 2)
+                resume = j + 1 if cat is None else j + 2
             else:
-                x = conv_bias_leaky(x, p["w"], p["b"], stride=d.stride, groups=d.groups,
-                                    act=d.act)
+                x = bias_leaky(y, p["b"], d.act)
         elif kind == "pool":
             if use_pool_k and _pool_routable(x, op[1], op[2]):
                 x = pool_k.maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
