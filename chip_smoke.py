@@ -87,12 +87,29 @@ Phases, each of which passes or raises (any failure exits non-zero):
    c21's shape), each beside its bound (bytes over 3.35 TB/s or operations
    over the peak of their type, from this run's inputs; dwsep's layers also
    as TFLOP/s), and detect images/s of each path, with and without its
-   forward kernels.
+   forward kernels;
+10. train path — the train CLI's loop (``cli.train.Train``) on 64 seeded
+   in-memory images of 200-500 px (filled rectangles; an injected
+   ``imread``, as the chip machine has no cv2) through the record cache,
+   the threaded loader, the overlapped copies and the fused augmentation:
+   full-width Darknet-19 from ``config.ini`` (VOC, bf16, batch 16, canvas
+   672, 60 boxes) with the gradient clipped at 5 and the multi-scale size
+   redrawn every 4 steps, 12 steps at three sizes, then ``-r`` for 2 more;
+   every loss component finite, every parameter and c1's BN state changed,
+   the optimizer count right; the final npz through ``load_weights_auto`` →
+   ``fold`` → ``detect_fn``, with the fused decode+NMS launch counted as on
+   the detect paths; one step at 160², B=2, card against CPU in f32 and f64
+   (TF32 off); the step's median time and images/s at 416 in bf16 for B=16
+   and B=64 on a device-resident batch and for B=16 through the loader,
+   peak memory, the step's parts timed alone and its device time by kernel
+   class (``torch.profiler``).  Prints ``{"train": {...}}``.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, max abs err, ms, plain_ms, bound_ms, bound_by and library_ms at batch
 8, null where no PyTorch call computes the function), then, last, ``{"ok":
-true, "device": {...}}``.  Times are information, not a benchmark.
+true, "device": {...}}``.  Times are information, not a benchmark.  The train
+path runs no hand-written kernel but the fused decode+NMS on its checkpoint:
+the JAX package trains with every Pallas kernel off.
 """
 
 from __future__ import annotations
@@ -757,7 +774,7 @@ def darknet_times(model, folded, run, card: str) -> dict:
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
     from yolojax_torch.ops.postprocess import postprocess_raw
 
-    anchors = torch.as_tensor(model.anchors, device="cuda")
+    anchors = torch.as_tensor(model.anchors, device=TRAIN_DEVICE)
     rng = np.random.default_rng(3)
     result = {}
     with torch.inference_mode():
@@ -874,7 +891,7 @@ def nms_times(model, folded, card: str) -> dict:
     from yolojax_torch.ops.decode import decode
     from yolojax_torch.ops.nms import nms_select as nms_plain
 
-    anchors = torch.as_tensor(model.anchors, device="cuda")
+    anchors = torch.as_tensor(model.anchors, device=TRAIN_DEVICE)
     result = {}
     with torch.inference_mode():
         for b in TIME_BATCHES:
@@ -1164,6 +1181,405 @@ def cuda_tests() -> None:
         f"{time.perf_counter() - t0:.1f} s)")
 
 
+# -- the train phase ------------------------------------------------------------
+
+TRAIN_ROOT = ROOT / "build" / "chip_smoke_train"   # git-ignored: config root of the train phase
+TRAIN_DEVICE = "cuda"       # the card (a CPU rehearsal of the phase sets "cpu")
+TRAIN_IMAGES = 64
+TRAIN_STEPS = 12
+TRAIN_INTERVAL = 4          # multi-scale redraw every 4 steps: sizes 576, 512, 480 from seed 0
+TRAIN_RESUME_STEPS = 2
+TRAIN_BATCHES = (16, 64)    # timed at 416 in bf16, the config's batch size and 4x it
+TRAIN_TIMED_STEPS = 10
+# card against CPU, one step of full-width Darknet-19 at 160², B=2 (TF32 off): components
+# and grad_norm rtol; params' change, BN state: ‖diff‖ / ‖CPU's‖ over the model.  BN's
+# backward over 2 images amplifies f32 rounding: each device's f32 step lies 1e-3 to 1e-2
+# from the f64 step, on which both devices agree far closer (the phase prints all three),
+# so f32 is held loosely and f64 tightly
+TRAIN_PARITY = {torch.float32: {"components": 2e-4, "change": 2e-2, "state": 1e-5},
+                torch.float64: {"components": 1e-6, "change": 1e-6, "state": 1e-9}}
+# device-kernel name fragments -> class, for the train step's profile
+KERNEL_CLASSES = (("conv (cuDNN / GEMM)", ("conv", "gemm", "xmma", "cutlass", "sm90", "wgrad",
+                                         "dgrad", "implicit", "winograd", "fft")),
+                  ("max pool", ("max_pool",)),
+                  ("reduction (BN statistics, loss sums)", ("reduce", "welford", "norm")),
+                  ("elementwise (BN, leaky, casts, optimizer)", ("elementwise", "vectorized",
+                                                                 "unrolled", "copy", "foreach")))
+
+
+def synth_records():
+    """TRAIN_IMAGES seeded images of 200-500 px with 1-5 filled rectangles on a
+    flat background each, and their records (boxes normalized, VOC classes)."""
+    from yolojax_torch.data.cache import make_record
+
+    rng = np.random.default_rng(20)
+    images, records = {}, []
+    for i in range(TRAIN_IMAGES):
+        h, w = (int(v) for v in rng.integers(200, 501, 2))
+        img = np.empty((h, w, 3), np.uint8)
+        img[:] = rng.integers(0, 256, 3, dtype=np.uint8)
+        k = int(rng.integers(1, 6))
+        lo = rng.uniform(0.0, 0.7, (k, 2))
+        hi = np.minimum(lo + rng.uniform(0.1, 0.5, (k, 2)), 1.0)
+        for (y0, x0), (y1, x1) in zip((lo * (h, w)).astype(int), (hi * (h, w)).astype(int)):
+            img[y0:y1, x0:x1] = rng.integers(0, 256, 3, dtype=np.uint8)
+        path = f"synth/{i:03d}"
+        images[path] = img
+        records.append(make_record(path, lo, hi, rng.integers(0, 20, k)))
+    return images, records
+
+
+def train_args(*argv):
+    """The train CLI's arguments and config: ``config.ini`` (Darknet-19, VOC,
+    bf16, batch 16, canvas 672, 60 boxes, multi-scale 320-608) under
+    TRAIN_ROOT, every summary scalar kept, no histogram or image, and the
+    gradient clipped at global norm 5, as the repo's end-to-end tests clip:
+    config.ini's recipe has no burn-in, and from a random init its loss
+    diverges within a few steps in both packages (seen on the CPU)."""
+    from yolojax_torch.cli.train import train_parser
+    from yolojax_torch.config import load_config
+
+    args = train_parser().parse_args([
+        "--device", TRAIN_DEVICE, "-m", f"config/root={TRAIN_ROOT}", "model/name=smoke",
+        "train/clip=5",
+        f"train/multi_scale_interval={TRAIN_INTERVAL}", "summary/scalar=1",
+        "summary/histogram=0", "summary/image=0", "save/interval=1e9", *argv])
+    return args, load_config(args.config, args.modify or ())
+
+
+def write_train_cache(records) -> None:
+    import pickle
+    import shutil
+
+    from yolojax_torch.data.cache import cache_path
+
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    _, config = train_args()
+    path = Path(cache_path(config, "train"))
+    path.parent.mkdir(parents=True)
+    with open(path, "wb") as f:
+        pickle.dump(records, f)
+
+
+def train_runs(images) -> dict:
+    """TRAIN_STEPS steps of the train CLI's loop from a fresh init, then ``-r``
+    for TRAIN_RESUME_STEPS more; returns what the checks need."""
+    from yolojax_torch.cli.train import Train
+    from yolojax_torch.config import get_model_dir
+
+    args, config = train_args("--steps", str(TRAIN_STEPS))
+    train = Train(args, config, imread=images.__getitem__)
+    start = {k: {n: v.clone() for n, v in lp.items()} for k, lp in train.params.items()}
+    start_state = {n: v.clone() for n, v in train.state["c1"].items()}
+    t0 = time.perf_counter()
+    if train(max_steps=args.steps) != TRAIN_STEPS:
+        raise AssertionError(f"train: stopped at step {train.step}, not {TRAIN_STEPS}")
+    first_s = time.perf_counter() - t0
+    model_dir = Path(get_model_dir(config))
+    rows = [json.loads(line) for line in (model_dir / "scalars.jsonl").read_text().splitlines()]
+    sizes = sorted({int(r["size"]) for r in rows})
+    bad = [(r["step"], k) for r in rows for k in ("coord", "object", "noobject", "cls", "prior",
+                                                  "total", "grad_norm") if not np.isfinite(r[k])]
+    if len(rows) != TRAIN_STEPS or bad:
+        raise AssertionError(f"train: {len(rows)} scalar rows, non-finite {bad}")
+    if len(sizes) < 3:
+        raise AssertionError(f"train: input sizes {sizes}; the phase needs 3 or more")
+    unchanged = [k for k in start if torch.equal(start[k]["w"], train.params[k]["w"])]
+    if unchanged or any(torch.equal(start_state[n], train.state["c1"][n]) for n in start_state):
+        raise AssertionError(f"train: params of {unchanged} or c1's BN state did not change")
+    if train.opt_state["count"] != TRAIN_STEPS:
+        raise AssertionError(f"train: optimizer count {train.opt_state['count']}")
+    log(f"[train] {TRAIN_STEPS} steps of Darknet-19 (bf16, batch {train.batch_size}) through "
+        f"the loader and the augmentation in {first_s:.1f} s, prewarm of "
+        f"{len(train.sizes)} sizes included; input sizes {sizes}; first total "
+        f"{rows[0]['total']:.4g}, last {rows[-1]['total']:.4g}; every parameter and c1's "
+        f"running mean and variance changed; optimizer count {TRAIN_STEPS}")
+    del train
+
+    total = TRAIN_STEPS + TRAIN_RESUME_STEPS
+    args, config = train_args("-r", "--steps", str(total), "-m", "train/prewarm=0")
+    train = Train(args, config, imread=images.__getitem__)
+    seen = train.batch_size * TRAIN_STEPS
+    if (train.step, train.seen, train.opt_state["count"]) != (TRAIN_STEPS, seen, TRAIN_STEPS):
+        raise AssertionError(f"train -r: resumed at step {train.step}, seen {train.seen}, "
+                             f"count {train.opt_state['count']}")
+    if train(max_steps=args.steps) != total or train.opt_state["count"] != total:
+        raise AssertionError(f"train -r: ended at step {train.step}")
+    log(f"[train] -r resumed at step {TRAIN_STEPS}, seen {seen}, with the saved "
+        f"optimizer state, and went on to step {total}")
+    return {"steps": total, "sizes": sizes, "first_total": rows[0]["total"],
+            "last_total": rows[-1]["total"], "final": str(model_dir / f"{total}.npz"),
+            "config": config}
+
+
+def trained_detect(run: dict) -> dict:
+    """The final checkpoint through load_weights_auto -> fold -> detect_fn on 3
+    batches of 8 at 416: one fused decode+NMS launch per batch, counted."""
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.models.inference import Inference
+
+    config = run["config"]
+    _, _, model = build(config)
+    params, state, meta = load_weights_auto(config, model, run["final"], device=TRAIN_DEVICE)
+    if meta.get("step") != run["steps"]:
+        raise AssertionError(f"detect: {run['final']} holds step {meta.get('step')}")
+    inference = Inference(model)
+    folded = inference.fold(params, state)
+    detect = inference.detect_fn(THRESHOLD, OVERLAP, TOPK)
+    batches = [seeded_images(30 + i, 8) for i in range(3)]
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = [detect(folded, x) for x in batches]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: n * len(batches) for name, n in DARKNET_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"detect on the trained checkpoint launched {launches}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(t).all()) for out in outs for t in (out.yx_min, out.conf)):
+        raise AssertionError("detect on the trained checkpoint: non-finite outputs")
+    picks = sum(int(out.keep.sum()) for out in outs)
+    log(f"[train] the final checkpoint ({Path(run['final']).name}) through load_weights_auto, "
+        f"fold and detect_fn: {len(batches)} batches, launches {launches}, {picks} picks")
+    return launches
+
+
+def tree_rel(got: dict, want: dict) -> float:
+    """‖got − want‖ / ‖want‖ over every leaf (want on the CPU)."""
+    diff = sum(float(((got[k][n].cpu().double() - v.double()) ** 2).sum())
+               for k, lp in want.items() for n, v in lp.items())
+    norm = sum(float((v.double() ** 2).sum()) for lp in want.values() for v in lp.values())
+    return (diff / norm) ** 0.5
+
+
+def card_vs_cpu_step() -> dict:
+    """One step of full-width Darknet-19 at 160², B=2, no augmentation, TF32
+    off, on the card and on the CPU from the same params and batch, in f32
+    and in f64 (the loss itself computes in f32)."""
+    from yolojax_torch.cli.common import build
+    from yolojax_torch.ops.loss import LossConfig
+    from yolojax_torch.parallel.mesh import loss_weights_from_config, make_train_step
+    from yolojax_torch.utils.train import build_optimizer
+
+    _, config = train_args("-m", "model/dtype=float32")
+    _, _, model32 = build(config)
+    optimizer = build_optimizer(config)
+    rng = np.random.default_rng(40)
+    center = rng.uniform(0.3, 0.7, (2, 6, 2))
+    half = rng.uniform(0.05, 0.25, (2, 6, 2))
+    batch = {"images": torch.from_numpy(rng.uniform(0, 1, (2, 160, 160, 3)).astype(np.float32)),
+             "yx_min": torch.from_numpy(np.clip(center - half, 0, 1).astype(np.float32)),
+             "yx_max": torch.from_numpy(np.clip(center + half, 0, 1).astype(np.float32)),
+             "cls": torch.from_numpy(rng.integers(0, 20, (2, 6)).astype(np.int32)),
+             "valid": torch.ones((2, 6), dtype=torch.bool)}
+    out = {}
+    for dtype, bounds in TRAIN_PARITY.items():
+        model = dataclasses.replace(model32, dtype=dtype)
+        params, state = model.init(torch.Generator().manual_seed(0))
+        on = lambda tree, dev: {k: {n: v.to(dev, dtype) for n, v in lp.items()}
+                                for k, lp in tree.items()}
+        params = on(params, "cpu")
+        step = make_train_step(model, optimizer, loss_weights_from_config(config), LossConfig())
+        results = {}
+        for dev in ("cpu", TRAIN_DEVICE):
+            results[dev] = step(on(params, dev), on(state, dev), optimizer.init(on(params, dev)),
+                                {k: v.to(dev) for k, v in batch.items()}, 0)
+        (cp, cs, _, cm), (gp, gs, _, gm) = results["cpu"], results[TRAIN_DEVICE]
+        worst = max(abs(gm[k].item() - cm[k].item()) / abs(cm[k].item())
+                    for k in ("coord", "object", "noobject", "cls", "prior", "total", "grad_norm"))
+        change = lambda tree: {k: {n: v.cpu() - params[k][n] for n, v in lp.items()}
+                               for k, lp in tree.items()}
+        errs = {"components": worst, "change": tree_rel(change(gp), change(cp)),
+                "state": tree_rel(gs, cs)}
+        name = str(dtype).split(".")[-1]
+        out[name] = errs
+        out[f"{name}_change"] = {"cpu": change(cp), "card": change(gp)}
+        log(f"[train] one {name} step of full-width Darknet-19 at 160², B=2, card against CPU "
+            f"(TF32 off): components and grad_norm max rel diff {worst:.3g}, params' change "
+            f"{errs['change']:.3g}, BN state {errs['state']:.3g} (bounds {bounds})")
+        if any(errs[k] > bounds[k] for k in errs):
+            raise AssertionError(f"train: the card's {name} step differs from the CPU's: {errs}")
+    exact = out.pop("float64_change")["card"]
+    f32 = out.pop("float32_change")
+    out["float32_vs_float64"] = {dev: tree_rel(f32[dev], exact) for dev in f32}
+    log(f"[train] the f32 params' change against the card's f64 one: CPU "
+        f"{out['float32_vs_float64']['cpu']:.3g}, card {out['float32_vs_float64']['card']:.3g}")
+    return out
+
+
+def train_timer(b: int):
+    """The model, a step at 416 in bf16 on a device-resident augmented batch
+    of ``b``, and the state it runs on."""
+    from yolojax_torch.cli.common import build
+    from yolojax_torch.config import get_canvas
+    from yolojax_torch.data.transform import TrainAugment
+    from yolojax_torch.ops.loss import LossConfig
+    from yolojax_torch.parallel.mesh import loss_weights_from_config, make_train_step
+    from yolojax_torch.utils.train import build_optimizer
+
+    _, config = train_args()
+    _, _, model = build(config)
+    params, state = model.init(torch.Generator().manual_seed(0), TRAIN_DEVICE)
+    optimizer = build_optimizer(config)
+    augment = TrainAugment.from_config(config)
+    step = make_train_step(model, optimizer, loss_weights_from_config(config), LossConfig(),
+                           augment=augment)
+    rng = np.random.default_rng(50)
+    c, g = get_canvas(config), config.getint("data", "max_boxes")
+    center = rng.uniform(0.2, 0.8, (b, g, 2))
+    half = rng.uniform(0.02, 0.2, (b, g, 2))
+    batch = {"canvas": torch.from_numpy(rng.integers(0, 256, (b, c, c, 3), dtype=np.uint8)),
+             "hw": torch.from_numpy(rng.integers(c // 3, c + 1, (b, 2)).astype(np.float32)),
+             "yx_min": torch.from_numpy(np.clip(center - half, 0, 1).astype(np.float32)),
+             "yx_max": torch.from_numpy(np.clip(center + half, 0, 1).astype(np.float32)),
+             "cls": torch.from_numpy(rng.integers(0, 20, (b, g)).astype(np.int32)),
+             "valid": torch.from_numpy(rng.uniform(size=(b, g)) < 0.1)}
+    batch = {k: v.to(TRAIN_DEVICE) for k, v in batch.items()}
+    draws = augment.draw(torch.Generator().manual_seed(1), b)
+    return model, optimizer, augment, step, [params, state, optimizer.init(params)], batch, draws
+
+
+def step_ms(step, carry, batch, draws, reps: int) -> list[float]:
+    """Wall ms of ``reps`` steps, each ended by a synchronize (the step reads
+    nothing back before it returns)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        carry[:3] = step(*carry, batch, 0, draws, SIZE)[:3]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def train_times(images, card: str) -> dict:
+    """Median ms per step and images/s at 416 in bf16: B=16 and B=64 on a
+    device-resident batch, B=16 through the loader; peak memory; the B=16
+    step's device time by kernel class (torch.profiler)."""
+    from yolojax_torch.cli.train import Train
+
+    out = {}
+    for b in TRAIN_BATCHES:
+        model, optimizer, augment, step, carry, batch, draws = train_timer(b)
+        step_ms(step, carry, batch, draws, 3)
+        torch.cuda.reset_peak_memory_stats()
+        t = step_ms(step, carry, batch, draws, TRAIN_TIMED_STEPS)
+        ms = float(np.median(t))
+        out[f"step_ms_b{b}"] = ms
+        out[f"img_per_s_b{b}"] = b / ms * 1e3
+        out[f"peak_gb_b{b}"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[train] {card} | step at {SIZE}, bf16, batch {b}, device-resident batch: "
+            f"median {ms:.2f} ms ({min(t):.2f}-{max(t):.2f}) = {b / ms * 1e3:.1f} img/s; "
+            f"peak memory {out[f'peak_gb_b{b}']:.2f} GB")
+        if b != TRAIN_BATCHES[0]:
+            del model, optimizer, augment, step, carry, batch, draws
+            continue
+        out["profile"] = train_profile(step, carry, batch, draws, card)
+        out["phases"] = train_phases(model, optimizer, augment, carry, batch, draws, card)
+        del model, optimizer, augment, step, carry, batch, draws
+
+    args, config = train_args("-m", f"train/multi_scale_min={SIZE}",
+                              f"train/multi_scale_max={SIZE}", "model/name=timed",
+                              "train/prewarm=0")
+    train = Train(args, config, imread=images.__getitem__)
+    source = train.device_batches()
+    times = []
+    for i in range(3 + TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        batch = next(source)
+        train.params, train.state, train.opt_state, _ = train.train_step(
+            train.params, train.state, train.opt_state, batch, 0, train.draws(train.batch_size),
+            SIZE)
+        train.step += 1
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    train.summary.close()
+    ms = float(np.median(times[3:]))
+    out["loader_step_ms_b16"] = ms
+    out["loader_img_per_s_b16"] = train.batch_size / ms * 1e3
+    log(f"[train] {card} | step at {SIZE}, bf16, batch {train.batch_size}, through the loader "
+        f"(threads decode, side-stream copies): median {ms:.2f} ms "
+        f"({min(times[3:]):.2f}-{max(times[3:]):.2f}) = {out['loader_img_per_s_b16']:.1f} img/s")
+    return out
+
+
+def train_profile(step, carry, batch, draws, card: str) -> dict:
+    """torch.profiler over 3 steps at batch 16: device time by kernel class
+    and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_ms(step, carry, batch, draws, 3)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels) / 3
+    if device_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time for the train step")
+    shares = {}
+    for e in kernels:
+        name = e.key.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        shares[cls] = shares.get(cls, 0.0) + e.self_device_time_total / 3 / device_us
+    launches = sum(e.count for e in kernels) / 3
+    log(f"[profile] {card} | train step at {SIZE}, bf16, batch 16: {device_us / 1e3:.3f} ms of "
+        f"device time per step, {launches:.0f} kernel launches per step")
+    for cls, share in sorted(shares.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {100 * share:6.2f} %  {cls}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:20]:
+        log(f"[profile]   {100 * e.self_device_time_total / 3 / device_us:6.2f} %  "
+            f"{e.self_device_time_total / 3 / 1e3:8.3f} ms  x{e.count / 3:<5.0f} {e.key[:90]}")
+    return {"device_ms": device_us / 1e3, "launches": launches,
+            "shares": {k: round(v, 4) for k, v in shares.items()}}
+
+
+def train_phases(model, optimizer, augment, carry, batch, draws, card: str) -> dict:
+    """CUDA-event ms of the step's parts at batch 16, each run alone:
+    augment, forward, forward + loss + backward, optimizer update."""
+    from yolojax_torch.ops.loss import LossConfig, region_loss
+
+    params, state, opt_state = carry
+    anchors = torch.as_tensor(model.anchors, device=TRAIN_DEVICE)
+    images, ymin, ymax, valid = augment.apply(batch["canvas"], batch["hw"], batch["yx_min"],
+                                              batch["yx_max"], batch["valid"], draws, SIZE)
+
+    def backward():
+        live = {k: {n: v.detach().requires_grad_(True) for n, v in lp.items()}
+                for k, lp in params.items()}
+        raw, _ = model.apply(live, state, images, train=True)
+        comps = region_loss(raw, anchors, ymin, ymax, batch["cls"], valid, 0, LossConfig())
+        sum(comps.values()).backward()
+
+    grads = {k: {n: torch.ones_like(v) for n, v in lp.items()} for k, lp in params.items()}
+    parts = {"augment": lambda: augment.apply(batch["canvas"], batch["hw"], batch["yx_min"],
+                                              batch["yx_max"], batch["valid"], draws, SIZE),
+             "forward": lambda: model.apply(params, state, images, train=True),
+             "forward+loss+backward": backward,
+             "optimizer": lambda: optimizer.step(grads, opt_state, params)}
+    out = {name: float(np.median(cuda_ms(fn, 5, 2))) for name, fn in parts.items()}
+    log(f"[train] {card} | parts of the batch-{TRAIN_BATCHES[0]} step at {SIZE} (CUDA events, each alone): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items()))
+    return out
+
+
+def train_phase(card: str) -> tuple[dict, dict]:
+    """The train CLI's loop on synthetic records, resume, detect on its
+    checkpoint, the card against the CPU, and times.  Returns (the fused
+    kernel's launches on the trained checkpoint, the train line's numbers)."""
+    t0 = time.perf_counter()
+    images, records = synth_records()
+    write_train_cache(records)
+    run = train_runs(images)
+    launches = trained_detect(run)
+    parity = card_vs_cpu_step()
+    times = train_times(images, card)
+    result = {"card": card, "model": "Darknet-19", "dtype": "bfloat16", "size": SIZE,
+              "steps": run["steps"], "sizes": run["sizes"], "first_total": run["first_total"],
+              "last_total": run["last_total"], "card_vs_cpu": parity, **times,
+              "seconds": time.perf_counter() - t0}
+    log(f"[train] the train phase took {result['seconds']:.1f} s")
+    return launches, result
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--profile"] and len(args) <= 2:
@@ -1207,6 +1623,7 @@ def main() -> None:
     detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
     del tiny_model, tiny_folded, tiny_run
     layout_t = layout_times(card)
+    train_launches, train_result = train_phase(card)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each); ms,
@@ -1215,7 +1632,7 @@ def main() -> None:
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
-    paths = (dark_launches, mob_launches, s2d_launches, tiny_launches)
+    paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -1230,6 +1647,7 @@ def main() -> None:
                "nms_select": ("nms_select.cu", "yolojax/kernels/nms.py:118"),
                "maxpool2x2": ("maxpool2x2.cu", "yolojax/kernels/pool.py:40"),
                "reorg_s2d": ("reorg_s2d.cu", "yolojax/kernels/reorg.py:38")}
+    print(json.dumps({"train": train_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

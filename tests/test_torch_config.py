@@ -1,7 +1,7 @@
 """The port's own copies of yolojax's jax-free modules, held against the
 originals on the same inputs: ``config`` (load_config with overlays and
-``-m`` mods, get_canvas, get_model_dir, get_category_path,
-add_config_arguments), ``category`` (get_category, get_anchors), ``cli``
+``-m`` mods, get_canvas, get_cache_dir, get_model_dir, get_category_path,
+parse_attr_list, add_config_arguments), ``category`` (get_category, get_anchors), ``cli``
 (make_parser, setup) and ``utils.visualize`` (draw_boxes).  Each must give
 exactly what the original gives.
 """
@@ -42,6 +42,18 @@ def test_load_config_matches(overlay):
     assert got.get("data", "sizes") == "320,320"
 
 
+def test_parse_attr_list_resolves_to_the_port():
+    config = jconfig.load_config(_paths("root"))
+    names = config.get("transform", "train")
+    got = tconfig.parse_attr_list(names)
+    want = jconfig.parse_attr_list(names)
+    assert [t.__name__ for t in got] == [t.__name__ for t in want] == [
+        "RandomCrop", "RandomFlipHorizontally", "HSVJitter"]
+    assert all(t.__module__ == "yolojax_torch.data.transform" for t in got)
+    assert tconfig.parse_attr(config.get("train", "optimizer")).__module__ == \
+        "yolojax_torch.utils.train"
+
+
 def test_load_config_defaults_and_mods_match():
     assert tconfig.default_config_path() == jconfig.default_config_path()
     assert _items(tconfig.load_config()) == _items(jconfig.load_config())
@@ -61,6 +73,7 @@ def test_paths_and_canvas_match(overlay, monkeypatch, tmp_path):
         got = tconfig.load_config(_paths(overlay), mods)
         assert tconfig.get_canvas(got) == jconfig.get_canvas(want)
         assert tconfig.get_model_dir(got) == jconfig.get_model_dir(want)
+        assert tconfig.get_cache_dir(got) == jconfig.get_cache_dir(want)
         assert tconfig.get_category_path(got) == jconfig.get_category_path(want)
 
 

@@ -39,7 +39,8 @@ def test_the_walk_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"yolojax_torch/config.py", "yolojax_torch/category.py",
             "yolojax_torch/cli/__init__.py", "yolojax_torch/utils/visualize.py",
-            "yolojax_torch/kernels/_build.py", "chip_smoke.py",
+            "yolojax_torch/kernels/_build.py", "yolojax_torch/cli/train.py",
+            "yolojax_torch/parallel/mesh.py", "yolojax_torch/data/loader.py", "chip_smoke.py",
             "tests/test_torch_cuda_kernels.py", "tests/test_torch_cuda_nms_pool_reorg.py"} <= names
     assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
     # the check itself: a forbidden import is found, the port's own is not

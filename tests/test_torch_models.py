@@ -113,8 +113,10 @@ def test_darknet_fold_layout_and_dtypes(rng):
 
 
 def test_run_plan_rejects_training():
+    """A train-mode forward needs the unfolded params' BN state: the folded
+    path refuses ``train=True``."""
     model = Darknet(anchors=ANCHORS, num_classes=3, width=ChannelResolver(NARROW))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="BN state"):
         run_plan(model.plan, {}, torch.zeros(1, 64, 64, 3), train=True)
 
 
@@ -168,9 +170,8 @@ def test_config_resolves_to_the_port():
 
 
 @pytest.mark.parametrize("path,error,missing", [
-    ("yolojax.utils.train.adam", ModuleNotFoundError, "yolojax_torch.utils.train"),
-    ("yolojax.data.transform.RandomCrop", AttributeError,
-     "yolojax_torch.data.transform.RandomCrop"),
+    ("yolojax.data.voc.load", ModuleNotFoundError, "yolojax_torch.data.voc"),
+    ("yolojax.data.cache.cache", AttributeError, "yolojax_torch.data.cache.cache"),
 ])
 def test_unported_config_values_name_the_missing_part(path, error, missing):
     with pytest.raises(error, match=missing):

@@ -24,10 +24,12 @@ def build(config):
 
 
 def load_weights_auto(config, model, path: str | None = None, resume: bool = False,
-                      rng_seed: int = 0, device="cpu"):
+                      rng_seed: int = 0, reinit_head: bool = False, device="cpu"):
     """Resolve (params, state, meta) on ``device``: an explicit npz ``path`` >
     ``resume`` from the newest npz in the model dir > a fresh init drawn from
-    ``torch.Generator`` seeded with ``rng_seed``."""
+    ``torch.Generator`` seeded with ``rng_seed``.  ``reinit_head`` is for
+    darknet ``.weights`` whose class count differs, which the port cannot
+    import yet."""
     params, state = model.init(torch.Generator().manual_seed(rng_seed), device)
     if path is None and resume:
         path = ckpt.latest(get_model_dir(config))
@@ -36,8 +38,9 @@ def load_weights_auto(config, model, path: str | None = None, resume: bool = Fal
     if path is None:
         return params, state, {}
     if path.endswith(".weights"):
-        raise NotImplementedError(f"darknet .weights import is not ported yet ({path})")
-    trees, meta = ckpt.load(path)
+        raise NotImplementedError(f"darknet .weights import is not ported yet ({path}, "
+                                  f"reinit_head={reinit_head})")
+    trees, meta = ckpt.load(path, ("params", "state"))
     loaded = ckpt.from_jax(trees.get("params", {}), trees.get("state", {}), device)
     for fresh, got, tree in zip((params, state), loaded, ("params", "state")):
         for layer, leaves in fresh.items():

@@ -7,7 +7,8 @@ imports nothing of the JAX package:
 * ``-c extra.ini`` overlays additional files, later files win;
 * ``-m section/key=value`` applies ad-hoc modifications (repeatable);
 * values that name code are dotted paths, resolved by :func:`parse_attr`;
-* :func:`get_model_dir` keys the checkpoint directory off the config.
+* :func:`get_cache_dir` / :func:`get_model_dir` key the dataset-cache and
+  checkpoint directories off the config.
 
 What differs is the resolution of dotted paths: a value naming ``yolojax.``
 code resolves to its ``yolojax_torch.`` counterpart, so one ``config.ini``
@@ -25,8 +26,9 @@ from typing import Any, Iterable, Sequence
 
 import torch
 
-__all__ = ["parse_attr", "torch_dtype", "load_config", "modify_config", "get_canvas",
-           "get_model_dir", "get_category_path", "default_config_path", "add_config_arguments"]
+__all__ = ["parse_attr", "parse_attr_list", "torch_dtype", "load_config", "modify_config",
+           "get_canvas", "get_cache_dir", "get_model_dir", "get_category_path",
+           "default_config_path", "add_config_arguments"]
 
 _JAX_PREFIX = "yolojax."
 _PORT_PREFIX = "yolojax_torch."
@@ -110,17 +112,31 @@ def parse_attr(path: str) -> Any:
         raise AttributeError(f"{target} is not ported yet (config value {path!r})") from None
 
 
+def parse_attr_list(value: str) -> list[Any]:
+    """Resolve a whitespace-separated list of dotted paths (transform pipelines)."""
+    return [parse_attr(p) for p in value.split()]
+
+
+def _root(config: configparser.ConfigParser) -> str:
+    return _expand(config.get("config", "root", fallback="~/.yolojax"))
+
+
 def _category_tag(config: configparser.ConfigParser) -> str:
     return os.path.splitext(os.path.basename(config.get("cache", "category")))[0]
+
+
+def get_cache_dir(config: configparser.ConfigParser) -> str:
+    """Directory holding the pickled dataset caches for the configured
+    category: ``<root>/cache/<category>``."""
+    return os.path.join(_root(config), "cache", _category_tag(config))
 
 
 def get_model_dir(config: configparser.ConfigParser) -> str:
     """Directory holding checkpoints for the configured model, category and
     name: ``<root>/model/<category>/<Model>/<name>``."""
-    root = _expand(config.get("config", "root", fallback="~/.yolojax"))
     model = config.get("model", "dnn").strip().rsplit(".", 1)[-1]
     name = config.get("model", "name", fallback="yolojax")
-    return os.path.join(root, "model", _category_tag(config), model, name)
+    return os.path.join(_root(config), "model", _category_tag(config), model, name)
 
 
 def get_canvas(config: configparser.ConfigParser) -> int:

@@ -1,1 +1,4 @@
-"""Data path of the port: the deterministic eval/detect resize."""
+"""Data path of the port: the record cache (``cache``), the host dataset of
+gray canvases (``dataset``), the threaded loader with overlapped device
+copies (``loader``), the train augmentation and the eval/detect resize
+(``transform``)."""

@@ -5,6 +5,8 @@ protocol over plain dictionaries of tensors keyed by layer name:
 
 * ``init(generator, device) -> (params, state)`` — f32 parameters and BN
   state, conv weights in torch's OIHW layout;
+* ``apply(params, state, images, train) -> (raw, new_state)`` — the unfolded
+  forward that training differentiates (batch statistics in train mode);
 * ``fold(params, state) -> folded`` + ``apply_folded(folded, images)`` — the
   inference path with BatchNorm folded into the conv weights;
 * ``layer_defs`` — the ordered conv table (darknet ``.weights`` order).

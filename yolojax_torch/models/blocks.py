@@ -1,11 +1,18 @@
-"""Folded conv + bias + LeakyReLU blocks — the inference half of
+"""Conv + BatchNorm + LeakyReLU blocks — counterpart of
 ``yolojax/models/blocks.py``.
 
-For inference, ``fold_bn`` folds the BN affine into the conv weights once, so
-each block is one conv followed by bias and leaky.  The rounding points are
-the JAX package's (``yolojax/models/blocks.py::conv_apply``): the conv output
-is in the compute dtype, ``+ b`` and the leaky run in f32 (the bias is f32),
-then the result is cast back to the compute dtype.
+Training runs :func:`conv_apply` on unfolded ``{w, gamma, beta | b}`` params
+and the BN running ``{mean, var}`` state: batch statistics in train mode,
+returned as a new state (never mutated in place).  For inference,
+``fold_bn`` folds the BN affine into the conv weights once, so each block is
+one conv followed by bias and leaky.
+
+The rounding points are the JAX package's (``conv_apply`` there): the conv
+output is in the compute dtype; the BN statistics of a bf16 output are bf16
+values (summed in f32, then rounded) and ``y − mean`` is a bf16 subtraction;
+the scale and shift are f32, so the rest of the epilogue runs in f32, and
+the result is cast back to the compute dtype.  Parameters stay f32 masters
+and are cast inside the forward, so their gradients come back f32.
 
 Layouts: activations NCHW (``channels_last`` memory on the hot path),
 weights OIHW.
@@ -16,26 +23,30 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BNConfig", "fold_bn", "leaky_relu", "bias_leaky", "conv", "conv_bias_leaky",
-           "max_pool"]
+__all__ = ["BNConfig", "conv_apply", "fold_bn", "leaky_relu", "bias_leaky", "conv",
+           "conv_bias_leaky", "max_pool"]
 
 
 def leaky_relu(x, slope=0.1):
-    """Darknet's leaky activation (``x >= 0`` passes through)."""
+    """Darknet's leaky activation (``x >= 0`` passes through, so the gradient
+    at exactly 0 is 1, as the JAX package's; ``F.leaky_relu``'s is the
+    slope)."""
     return torch.where(x >= 0, x, slope * x)
 
 
 class BNConfig:
-    """Batch-norm hyperparameters from the ``[batch_norm]`` section that
-    inference reads; ``gamma`` / ``beta`` off means a fixed scale 1 / shift 0
-    instead of the parameter.  (``momentum`` waits for the training port.)"""
+    """Batch-norm hyperparameters from the ``[batch_norm]`` section;
+    ``gamma`` / ``beta`` off means a fixed scale 1 / shift 0 instead of the
+    parameter (which stays in the params and gets a zero gradient);
+    ``momentum`` is the weight of the batch statistic in the running update."""
 
-    __slots__ = ("enable", "eps", "gamma", "beta")
+    __slots__ = ("enable", "eps", "momentum", "gamma", "beta")
 
-    def __init__(self, enable: bool = True, eps: float = 1e-5, gamma: bool = True,
-                 beta: bool = True):
+    def __init__(self, enable: bool = True, eps: float = 1e-5, momentum: float = 0.01,
+                 gamma: bool = True, beta: bool = True):
         self.enable = enable
         self.eps = eps
+        self.momentum = momentum
         self.gamma = gamma
         self.beta = beta
 
@@ -46,6 +57,7 @@ class BNConfig:
         return cls(
             enable=config.getboolean("batch_norm", "enable", fallback=True),
             eps=config.getfloat("batch_norm", "eps", fallback=1e-5),
+            momentum=config.getfloat("batch_norm", "momentum", fallback=0.01),
             gamma=config.getboolean("batch_norm", "gamma", fallback=True),
             beta=config.getboolean("batch_norm", "beta", fallback=True),
         )
@@ -91,11 +103,48 @@ def conv_bias_leaky(x, w, b, *, stride: int = 1, groups: int = 1, act: bool = Tr
     return bias_leaky(conv(x, w, stride=stride, groups=groups), b, act)
 
 
+def conv_apply(params: dict, state: dict, x, *, stride: int = 1, groups: int = 1,
+               act: bool = True, bn: BNConfig | None = None, train: bool = False,
+               compute_dtype=torch.bfloat16):
+    """Conv → BN (or bias) → leaky on an NCHW ``x`` → (y, new_state).
+
+    ``params``: f32 ``w`` (OIHW) and ``gamma``/``beta`` with BN or ``b``
+    without.  In train mode BN normalizes by the batch's mean and *biased*
+    variance and returns the running update ``(1−m)·old + m·batch``,
+    detached (``F.batch_norm`` would update with the unbiased variance); in
+    eval mode it uses the running state, which comes back unchanged.
+    """
+    bn = bn or BNConfig()
+    y = conv(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride, groups=groups)
+    new_state = state
+    if "gamma" in params and bn.enable:
+        if train:
+            stats = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 sums in f32
+            var, mean = torch.var_mean(stats, dim=(0, 2, 3), correction=0)
+            mean, var = mean.to(y.dtype), var.to(y.dtype)
+            m = bn.momentum
+            new_state = {"mean": (1 - m) * state["mean"] + m * mean.detach(),
+                         "var": (1 - m) * state["var"] + m * var.detach()}
+        else:
+            mean, var = state["mean"], state["var"]
+        inv = torch.rsqrt(var + bn.eps)
+        if bn.gamma:
+            inv = inv * params["gamma"]
+        y = (y - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)
+        y = y + (params["beta"].view(1, -1, 1, 1) if bn.beta else 0.0)
+    elif "b" in params:
+        y = y + params["b"].view(1, -1, 1, 1)
+    if act:
+        y = leaky_relu(y)
+    return y.to(compute_dtype), new_state
+
+
 def max_pool(x, size: int = 2, stride: int | None = None):
     """Max pool of an NCHW ``x`` with darknet semantics, as
     ``yolojax/models/blocks.py::max_pool``: SAME for a stride-1 pool (Tiny's
     tail pool: -inf padding, ``(size - 1) // 2`` before and the rest after,
-    so H and W stay), VALID otherwise."""
+    so H and W stay), VALID otherwise.  Its gradient goes to the first
+    maximum of a window, as XLA's ``reduce_window`` gradient does."""
     stride = size if stride is None else stride
     if stride == 1:
         lo = (size - 1) // 2

@@ -31,7 +31,8 @@ __all__ = ["Darknet", "Tiny"]
 @dataclass
 class _PlanModel(ModelBase):
     """A model described by its plan (``models/engine.py``): the subclass
-    gives ``_build_plan``; init, BN folding and the folded forward follow."""
+    gives ``_build_plan``; init, the unfolded forward (training), BN folding
+    and the folded forward follow."""
 
     def __post_init__(self):
         self.plan = self._build_plan()
@@ -74,6 +75,14 @@ class _PlanModel(ModelBase):
                       for name, lp in folded.items()}
             add_kernel_weights(self.plan, folded, self.pallas)
             return folded
+
+    def apply(self, params, state, images, train: bool = False):
+        """images: (B, H, W, 3) in [0, 1] → (raw head (B, H/32, W/32,
+        A*(5+C)), new BN state), on the unfolded params: batch statistics and
+        a fresh state in train mode, the running state otherwise.  Runs no
+        kernel."""
+        return run_plan(self.plan, params, images, state=state, bn=self.bn, train=train,
+                        compute_dtype=self.dtype, reorg_order=self.reorg_order)
 
     def apply_folded(self, folded, images):
         """images: (B, H, W, 3) in [0, 1] → raw head (B, H/32, W/32, A*(5+C))."""

@@ -12,7 +12,15 @@ A model is an ordered plan of ops over one running tensor plus named slots:
 
 The running tensor is NCHW in ``channels_last`` memory (NHWC bytes), which is
 what cuDNN's bf16 convolutions want; images come in NHWC, so the entry
-``permute`` is a view.  Training (``train=True``) is not ported yet.
+``permute`` is a view.
+
+Two forwards share the plan: the folded inference path (:func:`run_plan`
+without ``state``), which the kernels below serve, and the unfolded path
+(:func:`run_plan` with ``state``), which runs ``{w, gamma, beta | b}``
+params and the BN state through ``blocks.conv_apply`` — in train mode with
+batch statistics — and routes no kernel, as the JAX engine routes none when
+``train=True`` (``yolojax/models/engine.py:86-90``: its Pallas kernels have
+no backward).
 
 Kernel routing follows the JAX engine (``yolojax/models/engine.py:86-164``):
 with ``dwsep`` selected, a depthwise 3×3 conv and the 1×1 conv after it run
@@ -47,7 +55,7 @@ from ..kernels import pool as pool_k
 from ..kernels import reorg as reorg_k
 from ..ops.reorg import reorg
 from . import LayerDef, kernel_active
-from .blocks import BNConfig, bias_leaky, conv, fold_bn, max_pool
+from .blocks import BNConfig, bias_leaky, conv, conv_apply, fold_bn, max_pool
 
 __all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights"]
 
@@ -130,17 +138,27 @@ def _after_conv(plan, i):
     return key, j, plan[j] if j < len(plan) else None
 
 
-def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat16,
-             reorg_order: str = "darknet", pallas: frozenset = frozenset()):
-    """Execute the plan on folded ``{w, b}`` params.
+def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None = None,
+             train: bool = False, compute_dtype=torch.bfloat16, reorg_order: str = "darknet",
+             pallas: frozenset = frozenset()):
+    """Execute the plan.
 
     ``x``: (B, H, W, C) images → (B, h, w, C_out) NHWC output in the compute
     dtype.  The input is cast to the compute dtype before the first conv.
-    ``pallas`` holds the ``[model] pallas`` tokens; a routed layer needs the
-    weight layouts of :func:`add_kernel_weights` in ``folded``.
+
+    Without ``state``, ``params`` are folded ``{w, b}`` params and the
+    output is returned; ``pallas`` holds the ``[model] pallas`` tokens, and a
+    routed layer needs the weight layouts of :func:`add_kernel_weights` in
+    them.  With ``state`` (BN running stats), ``params`` are the unfolded
+    params and the result is ``(output, new_state)``; ``train`` selects
+    batch statistics.
     """
+    if state is not None:
+        return _run_unfolded(plan, params, state, x, bn=bn or BNConfig(), train=train,
+                             compute_dtype=compute_dtype, reorg_order=reorg_order)
     if train:
-        raise NotImplementedError("training forward is not ported yet")
+        raise ValueError("a train-mode forward needs the BN state (run_plan(..., state=...))")
+    folded = params
     use_dw_k = kernel_active("dwconv", pallas)
     use_dwsep = kernel_active("dwsep", pallas)
     use_pool_k = kernel_active("pool", pallas)
@@ -206,6 +224,38 @@ def run_plan(plan, folded, x, *, train: bool = False, compute_dtype=torch.bfloat
         else:
             raise ValueError(f"unknown plan op {kind!r}")
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _run_unfolded(plan, params, state, x, *, bn: BNConfig, train: bool, compute_dtype,
+                  reorg_order: str):
+    """The unfolded forward → (output, new_state): every conv through
+    ``conv_apply``, no kernel.  ``new_state`` holds a fresh (detached) entry
+    for each BN layer in train mode and the given one otherwise."""
+    slots = {}
+    new_state = dict(state)
+    x = x.to(compute_dtype).permute(0, 3, 1, 2)
+    for op in plan:
+        kind = op[0]
+        if kind == "conv":
+            d = op[1]
+            x, ns = conv_apply(params[d.name], state.get(d.name, {}), x, stride=d.stride,
+                               groups=d.groups, act=d.act, bn=bn, train=train,
+                               compute_dtype=compute_dtype)
+            if ns:
+                new_state[d.name] = ns
+        elif kind == "pool":
+            x = max_pool(x, op[1], op[2])
+        elif kind == "mark":
+            slots[op[1]] = x
+        elif kind == "load":
+            x = slots[op[1]]
+        elif kind == "reorg":
+            x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
+        elif kind == "concat":
+            x = torch.cat([x, slots[op[1]]], dim=1)
+        else:
+            raise ValueError(f"unknown plan op {kind!r}")
+    return x.permute(0, 2, 3, 1).contiguous(), new_state
 
 
 def add_kernel_weights(plan, folded, pallas: frozenset) -> None:

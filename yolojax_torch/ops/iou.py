@@ -1,12 +1,13 @@
-"""IoU in the repo-wide yx-corner convention — the part of
-``yolojax/ops/iou.py`` that NMS needs.  Boxes are ``(yx_min, yx_max)`` pairs
-of shape ``(..., 2)`` holding (y, x)."""
+"""IoU in the repo-wide yx-corner convention — counterpart of
+``yolojax/ops/iou.py`` (the torch half; the numpy mirror stays with the host
+tooling that is not ported).  Boxes are ``(yx_min, yx_max)`` pairs of shape
+``(..., 2)`` holding (y, x)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["area", "iou_pairwise"]
+__all__ = ["area", "intersection", "iou_matrix", "iou_pairwise", "wh_iou_matrix"]
 
 _EPS = 1e-10
 
@@ -17,6 +18,21 @@ def area(yx_min, yx_max):
     return hw[..., 0] * hw[..., 1]
 
 
+def intersection(yx_min1, yx_max1, yx_min2, yx_max2):
+    """Pairwise intersection areas: (..., N1, 2) × (..., N2, 2) → (..., N1, N2)."""
+    ymin = torch.maximum(yx_min1[..., :, None, :], yx_min2[..., None, :, :])
+    ymax = torch.minimum(yx_max1[..., :, None, :], yx_max2[..., None, :, :])
+    return area(ymin, ymax)
+
+
+def iou_matrix(yx_min1, yx_max1, yx_min2, yx_max2):
+    """Pairwise IoU matrix (..., N1, N2) — the loss's ignore band."""
+    inter = intersection(yx_min1, yx_max1, yx_min2, yx_max2)
+    a1 = area(yx_min1, yx_max1)[..., :, None]
+    a2 = area(yx_min2, yx_max2)[..., None, :]
+    return inter / torch.clamp(a1 + a2 - inter, min=_EPS)
+
+
 def iou_pairwise(yx_min1, yx_max1, yx_min2, yx_max2):
     """Elementwise IoU of two broadcastable box sets, shape (...,)."""
     ymin = torch.maximum(yx_min1, yx_min2)
@@ -24,3 +40,13 @@ def iou_pairwise(yx_min1, yx_max1, yx_min2, yx_max2):
     inter = area(ymin, ymax)
     union = area(yx_min1, yx_max1) + area(yx_min2, yx_max2) - inter
     return inter / torch.clamp(union, min=_EPS)
+
+
+def wh_iou_matrix(hw1, hw2):
+    """Shape-only IoU of (h, w) pairs, both boxes centered at the origin:
+    (..., N1, 2) × (..., N2, 2) → (..., N1, N2).  The loss's anchor match."""
+    inter = torch.minimum(hw1[..., :, None, :], hw2[..., None, :, :])
+    inter = inter[..., 0] * inter[..., 1]
+    a1 = (hw1[..., 0] * hw1[..., 1])[..., :, None]
+    a2 = (hw2[..., 0] * hw2[..., 1])[..., None, :]
+    return inter / torch.clamp(a1 + a2 - inter, min=_EPS)

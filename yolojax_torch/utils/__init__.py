@@ -1,1 +1,2 @@
-"""Utilities of the port: checkpoint loading."""
+"""Utilities of the port: checkpoints, the optimizers and schedules, the
+train-loop summaries and drawing."""
