@@ -19,10 +19,12 @@ Phases, each of which passes or raises (any failure exits non-zero):
    calls), beside ``F.max_pool2d``, and of one fused decode+NMS call;
 3. kernels against their plain versions on the card:
    * fused decode+NMS — raw heads from numpy seeds, f32 and bf16, four
-     geometries, bench and saturated densities: ``keep`` and pick order
-     identical, conf rtol 1e-5 (2e-5 at C=80), corners atol 1e-5; prints
-     the longest compacted row (candidates above the threshold) per case;
-     then ``torch.profiler`` over one call must show one device kernel;
+     geometries at topk 100 and, at eval's point (batch 16, topk 300), VOC
+     and COCO at 416 and 608, bench and saturated densities: ``keep`` and
+     pick order identical (every kept slot the plain pick's box), conf rtol
+     1e-5 (2e-5 at C=80), corners atol 1e-5; prints the longest compacted
+     row (candidates above the threshold) per case; then ``torch.profiler``
+     over one call at each point must show one device kernel;
    * dwconv3x3 and dwsep — MobileNet-416's routed shapes at batch 8, an odd
      spatial size, channel counts that are not multiples of 128 (and, for
      dwsep, C = 36: element loads), a last pixel tile that is not full
@@ -102,14 +104,36 @@ Phases, each of which passes or raises (any failure exits non-zero):
    (TF32 off); the step's median time and images/s at 416 in bf16 for B=16
    and B=64 on a device-resident batch and for B=16 through the loader,
    peak memory, the step's parts timed alone and its device time by kernel
-   class (``torch.profiler``).  Prints ``{"train": {...}}``.
+   class (``torch.profiler``).  Prints ``{"train": {...}}``;
+11. eval path — 48 seeded images (filled rectangles, one box in ten
+   difficult) written in VOC2007's layout as binary PPM, and their ``test``
+   cache built by the port's ``data/cache.py::cache`` through ``[cache]
+   datasets = yolojax.data.voc``; ``cli.eval.run_eval`` on the card on the
+   train phase's checkpoint: full-width Darknet-19, 416, bf16, batch 16,
+   ``config.ini``'s ``[eval]`` (threshold 0.005, topk 300), every launch
+   counter set to 0 just before and read just after: 3 fused decode+NMS
+   launches and nothing else; mAP, each class's AP and images/s printed;
+   the fused kernel against its plain version on the checkpoint's raw head
+   (f32 and bf16, topk 300); the same eval with ``pallas = nms``: 3
+   nms_select launches, the same picks slot by slot and the same mAP; the
+   eval in f32 on the card and on the CPU (TF32 off): mAP within 2e-3 and
+   each class's AP within 1e-2; ``python -m yolojax_torch.cli.eval`` in a child
+   process with ``-f`` a ``.weights`` file that ``tools/darknet.py::
+   save_weights`` wrote from the same checkpoint: the npz run's mAP exactly,
+   the ``mAP =`` line, a ``--results`` jsonl and one ``eval.jsonl`` row (a
+   stand-in ``cv2`` that reads PPM goes on the child's path where OpenCV is
+   not installed; the in-process runs read through it too); the fused
+   kernel's one-call and device times at eval's point beside its bound and
+   its plain version.  Prints ``{"eval": {...}}``.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
-paths, max abs err, ms, plain_ms, bound_ms, bound_by and library_ms at batch
-8, null where no PyTorch call computes the function), then, last, ``{"ok":
-true, "device": {...}}``.  Times are information, not a benchmark.  The train
-path runs no hand-written kernel but the fused decode+NMS on its checkpoint:
-the JAX package trains with every Pallas kernel off.
+paths, the eval path's two runs included, max abs err, ms, plain_ms,
+bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
+computes the function), then, last, ``{"ok": true, "device": {...}}``.
+Times are information, not a benchmark.  The train path runs no
+hand-written kernel but the fused decode+NMS on its checkpoint: the JAX
+package trains with every Pallas kernel off.  Eval runs the fused decode+NMS
+(or nms_select with ``pallas = nms``).
 """
 
 from __future__ import annotations
@@ -126,9 +150,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 THRESHOLD, OVERLAP, TOPK = 0.005, 0.45, 100
+EVAL_TOPK, EVAL_BATCH = 300, 16    # config.ini's [eval] topk and batch_size
 BENCH_OBJECTNESS = -6.0     # background-dominated scores, as bench.py sets them
 # (B, H, W, A, C): VOC at 416 and 608, COCO's 80 classes, an odd tiny grid
 GEOMETRIES = [(8, 13, 13, 5, 20), (8, 19, 19, 5, 20), (2, 13, 13, 5, 80), (1, 4, 3, 2, 3)]
+# eval's batch at 416 and 608 (N = 845, 1805), and COCO's 80 classes at both
+EVAL_GEOMETRIES = [(16, 13, 13, 5, 20), (16, 19, 19, 5, 20), (16, 13, 13, 5, 80),
+                   (16, 19, 19, 5, 80)]
 REPS = 7
 SIZE = 416                  # input size of every model, config.ini's [data] sizes
 TIME_BATCHES = (8, 128)
@@ -260,16 +288,12 @@ def build_kernels() -> None:
         raise AssertionError("dwsep: the bf16 kernel's SASS has no HGMMA")
 
 
-def compare(got, want, c: int, what: str, det=None) -> float:
-    """Kept slots identical in order, conf to rtol 1e-5 (2e-5 at C=80),
-    corners to atol 1e-5; returns the largest abs difference.
-
-    With ``det``, the plain decode of the same raw head, a kept slot whose
-    corners differ passes only as a near tie: the kernel's box must be a
-    candidate of that image whose plain score for the class equals the plain
-    pick's score to the conf tolerance.  The fused kernel's ``expf`` and
-    PyTorch's sigmoid and softmax may round a saturated score an ulp apart,
-    and the greedy loop then takes near-equal scores in another order."""
+def compare(got, want, c: int, what: str) -> float:
+    """Kept slots identical in order (every kept slot picks the plain
+    version's box), conf to rtol 1e-5 (2e-5 at C=80), corners to atol 1e-5;
+    returns the largest abs difference.  The plain decode sums the softmax
+    in class order as the fused kernel does (``ops/decode.py``), so their
+    scores agree bit for bit and no near tie may take another order."""
     keep = want.keep.cpu().numpy()
     if not np.array_equal(got.keep.cpu().numpy(), keep):
         raise AssertionError(f"{what}: keep differs "
@@ -278,26 +302,13 @@ def compare(got, want, c: int, what: str, det=None) -> float:
     conf_got, conf_want = (np.where(keep, t.conf.cpu().numpy(), 0) for t in (got, want))
     np.testing.assert_allclose(conf_got, conf_want, rtol=rtol, atol=0, err_msg=f"{what}: conf")
     err = float(np.abs(conf_got - conf_want).max(initial=0.0))
-    corners = [(getattr(got, n).cpu().numpy(), getattr(want, n).cpu().numpy())
-               for n in ("yx_min", "yx_max")]
-    off = keep & np.any([(np.abs(g - w) > 1e-5).any(-1) for g, w in corners], axis=0)
-    if off.any():
-        if det is None:
-            raise AssertionError(f"{what}: {int(off.sum())} kept slots pick other boxes")
-        dmin, dmax, dconf = (t.float().cpu().numpy() for t in (det.yx_min, det.yx_max, det.conf))
-        (gmin, _), (gmax, _) = corners
-        for b, k, t in zip(*np.nonzero(off)):
-            box = ((np.abs(dmin[b] - gmin[b, k, t]).max(-1) <= 1e-5)
-                   & (np.abs(dmax[b] - gmax[b, k, t]).max(-1) <= 1e-5))
-            pick = conf_want[b, k, t]
-            if not (np.abs(dconf[b, box, k] - pick) <= rtol * pick).any():
-                raise AssertionError(f"{what}: slot (image {b}, class {k}, {t}) picks a box that "
-                                     "is no near tie of the plain pick")
-        log(f"[tie] {what}: {int(off.sum())} of {int(keep.sum())} kept slots pick another "
-            f"candidate whose plain score equals the plain pick's to rtol {rtol:g}")
-    for g, w in corners:
-        same = (keep & ~off)[..., None]
-        err = max(err, float(np.abs(np.where(same, g - w, 0)).max(initial=0.0)))
+    for name in ("yx_min", "yx_max"):
+        g, w = getattr(got, name).cpu().numpy(), getattr(want, name).cpu().numpy()
+        off = keep & (np.abs(g - w) > 1e-5).any(-1)
+        if off.any():
+            raise AssertionError(f"{what}: {int(off.sum())} of {int(keep.sum())} kept slots "
+                                 f"pick other boxes than the plain version ({name})")
+        err = max(err, float(np.abs(np.where(keep[..., None], g - w, 0)).max(initial=0.0)))
     return err
 
 
@@ -317,36 +328,46 @@ def compacted(det) -> int:
     return int((det.conf > THRESHOLD).sum(1).max().item())
 
 
-def fused_vs_plain() -> float:
+def fused_case(head, anchors, c: int, what: str, topk: int) -> float:
+    """The fused kernel against decode + the plain postprocess on one raw
+    head; returns the largest abs difference (see ``compare``)."""
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
     from yolojax_torch.ops.decode import decode
     from yolojax_torch.ops.postprocess import postprocess
 
-    rng = np.random.default_rng(0)
+    got = postprocess_fused(head, anchors, THRESHOLD, OVERLAP, topk)
+    det = decode(head, torch.as_tensor(anchors, device=head.device))
+    want = postprocess(det, THRESHOLD, OVERLAP, topk)
+    torch.cuda.synchronize()
+    err = compare(got, want, c, what)
+    picks = want.keep.sum(-1)
+    log(f"[kernel] fused {what}: match, {int(picks.sum())} picks (most in one row "
+        f"{int(picks.max())}), longest compacted row {compacted(det)} of {det.conf.shape[1]}, "
+        f"max abs err {err:.3g}")
+    return err
+
+
+def fused_vs_plain(geometries=GEOMETRIES, topk: int = TOPK, seed: int = 0) -> float:
+    rng = np.random.default_rng(seed)
     worst, cases = 0.0, 0
-    for b, h, w, a, c in GEOMETRIES:
+    for b, h, w, a, c in geometries:
         anchors = rng.uniform(0.5, 4.0, (a, 2)).astype(np.float32)
         for density in ("bench", "saturated"):
             raw = seeded_raw(rng, b, h, w, a, c, density)
             for dtype in (torch.float32, torch.bfloat16):
                 head = torch.from_numpy(raw).to("cuda", dtype)
-                got = postprocess_fused(head, anchors, THRESHOLD, OVERLAP, TOPK)
-                det = decode(head, anchors)
-                want = postprocess(det, THRESHOLD, OVERLAP, TOPK)
-                torch.cuda.synchronize()
-                what = f"({b},{h},{w},{a * (5 + c)}) {density} {str(dtype)[6:]}"
-                err = compare(got, want, c, what, det)
-                worst, cases = max(worst, err), cases + 1
-                log(f"[kernel] fused {what}: match, {int(want.keep.sum())} picks, longest "
-                    f"compacted row {compacted(det)} of {h * w * a}, max abs err {err:.3g}")
-    log(f"[kernel] fused: {cases} cases match the plain version; max abs err {worst:.3g}")
+                what = f"({b},{h},{w},{a * (5 + c)}) {density} {str(dtype)[6:]} topk {topk}"
+                worst, cases = max(worst, fused_case(head, anchors, c, what, topk)), cases + 1
+    log(f"[kernel] fused at topk {topk}: {cases} cases match the plain version; max abs err "
+        f"{worst:.3g}")
     return worst
 
 
 def fused_one_launch() -> None:
     """One postprocess_fused call issues exactly one device kernel (no
     upcast, no keep, no memset or copy): torch.profiler over one call on a
-    bf16 Darknet-416 head at batch 8, anchors already on the card."""
+    bf16 Darknet-416 head, anchors already on the card, at detect's point
+    (batch 8, topk 100) and at eval's (batch 16, topk 300)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -354,17 +375,21 @@ def fused_one_launch() -> None:
 
     rng = np.random.default_rng(12)
     anchors = torch.from_numpy(rng.uniform(0.5, 4.0, (5, 2)).astype(np.float32)).cuda()
-    raw = torch.from_numpy(seeded_raw(rng, 8, 13, 13, 5, 20, "bench")).to("cuda", torch.bfloat16)
-    postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK)
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, TOPK)
+    for b, topk in ((8, TOPK), (EVAL_BATCH, EVAL_TOPK)):
+        raw = torch.from_numpy(seeded_raw(rng, b, 13, 13, 5, 20, "bench")).to("cuda",
+                                                                              torch.bfloat16)
+        postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, topk)
         torch.cuda.synchronize()
-    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if len(device) != 1 or "postprocess_fused" not in device[0]:
-        raise AssertionError(f"postprocess_fused: one call ran {len(device)} device "
-                             f"activities {device}; expected the fused kernel alone")
-    log(f"[kernel] fused: one call issues one device kernel ({device[0][:60]})")
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, topk)
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(device) != 1 or "postprocess_fused" not in device[0]:
+            raise AssertionError(f"postprocess_fused: one call (batch {b}, topk {topk}) ran "
+                                 f"{len(device)} device activities {device}; expected the "
+                                 "fused kernel alone")
+        log(f"[kernel] fused: one call at batch {b}, topk {topk} issues one device kernel "
+            f"({device[0][:60]})")
 
 
 def dw_inputs(rng, b, h, c, cout, dtype):
@@ -632,7 +657,7 @@ def drive(config, what: str, expect: dict):
                 raise AssertionError(f"{what} batch {i}: raw head {tuple(raw.shape)}")
             det = decode(raw, anchors_t)
             plain = postprocess(det, THRESHOLD, OVERLAP, TOPK)
-            compare(out, plain, model.num_classes, f"{what} batch {i}", det)
+            compare(out, plain, model.num_classes, f"{what} batch {i}")
             picks = out.keep.sum(-1).float()
             log(f"[{what}] batch {i}: raw {tuple(raw.shape)} {raw.dtype}, keep matches the "
                 f"plain postprocess; picks per (image, class) mean {picks.mean().item():.2f} "
@@ -663,7 +688,7 @@ def dense_batch(model, folded, run, what: str) -> None:
         out = run(dense, x)
         det = decode(model.apply_folded(dense, x), torch.as_tensor(model.anchors, device="cuda"))
         plain = postprocess(det, THRESHOLD, OVERLAP, TOPK)
-        compare(out, plain, model.num_classes, f"{what} dense batch", det)
+        compare(out, plain, model.num_classes, f"{what} dense batch")
     picks = out.keep.sum(-1).float()
     if not picks.max() > 0:
         raise AssertionError(f"{what} dense batch: no picks to compare")
@@ -1207,14 +1232,14 @@ KERNEL_CLASSES = (("conv (cuDNN / GEMM)", ("conv", "gemm", "xmma", "cutlass", "s
                                                                  "unrolled", "copy", "foreach")))
 
 
-def synth_records():
-    """TRAIN_IMAGES seeded images of 200-500 px with 1-5 filled rectangles on a
-    flat background each, and their records (boxes normalized, VOC classes)."""
+def synth_records(n: int = TRAIN_IMAGES, seed: int = 20):
+    """``n`` seeded images of 200-500 px with 1-5 filled rectangles on a flat
+    background each, and their records (boxes normalized, VOC classes)."""
     from yolojax_torch.data.cache import make_record
 
-    rng = np.random.default_rng(20)
+    rng = np.random.default_rng(seed)
     images, records = {}, []
-    for i in range(TRAIN_IMAGES):
+    for i in range(n):
         h, w = (int(v) for v in rng.integers(200, 501, 2))
         img = np.empty((h, w, 3), np.uint8)
         img[:] = rng.integers(0, 256, 3, dtype=np.uint8)
@@ -1561,10 +1586,11 @@ def train_phases(model, optimizer, augment, carry, batch, draws, card: str) -> d
     return out
 
 
-def train_phase(card: str) -> tuple[dict, dict]:
+def train_phase(card: str) -> tuple[dict, dict, str]:
     """The train CLI's loop on synthetic records, resume, detect on its
     checkpoint, the card against the CPU, and times.  Returns (the fused
-    kernel's launches on the trained checkpoint, the train line's numbers)."""
+    kernel's launches on the trained checkpoint, the train line's numbers,
+    the final checkpoint's path)."""
     t0 = time.perf_counter()
     images, records = synth_records()
     write_train_cache(records)
@@ -1577,7 +1603,344 @@ def train_phase(card: str) -> tuple[dict, dict]:
               "last_total": run["last_total"], "card_vs_cpu": parity, **times,
               "seconds": time.perf_counter() - t0}
     log(f"[train] the train phase took {result['seconds']:.1f} s")
-    return launches, result
+    return launches, result, run["final"]
+
+
+# -- the eval phase -------------------------------------------------------------
+
+EVAL_DIR = ROOT / "build" / "chip_smoke_eval"   # git-ignored: the VOC layout and the stub
+EVAL_IMAGES = 48
+# card against CPU, the whole eval in f32 with TF32 off: mAP and each class's AP, absolute
+EVAL_PARITY = {"map": 2e-3, "ap": 1e-2}
+# a stand-in for cv2 where OpenCV is not installed (the chip machine has none): imread of
+# the binary PPM files the phase writes, which cv2 itself decodes by content too.  The
+# in-process runs read through it, and the eval CLI's child process imports it as cv2
+CV2_STUB = '''"""cv2 stand-in: imread of binary PPM (P6) files only."""
+import numpy as np
+
+IMREAD_COLOR = 1
+
+
+def imread(path, flags=IMREAD_COLOR):
+    with open(path, "rb") as f:
+        magic, size, maxval, pixels = f.read().split(b"\\n", 3)
+    if magic != b"P6" or maxval != b"255":
+        return None
+    w, h = (int(v) for v in size.split())
+    return np.frombuffer(pixels, np.uint8).reshape(h, w, 3)[:, :, ::-1].copy()  # BGR
+'''
+
+
+def eval_config(*mods):
+    """config.ini (Darknet-19, VOC, bf16, [eval] threshold 0.005, topk 300,
+    batch 16) with the train phase's root and model name, so its checkpoints
+    are the model dir's, and the phase's VOC root."""
+    from yolojax_torch.config import load_config
+
+    return load_config(None, [f"config/root={TRAIN_ROOT}", "model/name=smoke",
+                              f"cache/voc_roots={EVAL_DIR / 'VOC2007'}", *mods])
+
+
+def eval_workspace():
+    """EVAL_IMAGES seeded images (synth_records) in VOC2007's layout, images
+    as binary PPM, one box in ten difficult; the test cache built from it by
+    the port's builder through ``[cache] datasets = yolojax.data.voc``.
+    Returns (the cv2 stand-in's directory, its imread in RGB, the records)."""
+    import importlib.util
+    import shutil
+
+    from yolojax_torch.category import get_category
+    from yolojax_torch.config import get_cache_dir
+    from yolojax_torch.data.cache import cache
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    voc = EVAL_DIR / "VOC2007"
+    for sub in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        (voc / sub).mkdir(parents=True)
+    stub = EVAL_DIR / "stub"
+    stub.mkdir()
+    (stub / "cv2.py").write_text(CV2_STUB)
+    spec = importlib.util.spec_from_file_location("chip_smoke_cv2_stub", stub / "cv2.py")
+    cv2_stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cv2_stub)
+
+    config = eval_config()
+    names = get_category(config)
+    rng = np.random.default_rng(61)
+    images, records = synth_records(EVAL_IMAGES, seed=60)
+    ids = []
+    for i, rec in enumerate(records):
+        img = images[rec["path"]]
+        h, w = img.shape[:2]
+        ids.append(f"{i:06d}")
+        (voc / "JPEGImages" / f"{ids[-1]}.jpg").write_bytes(
+            f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+        objs = []
+        for lo, hi, c in zip(rec["yx_min"], rec["yx_max"], rec["cls"]):
+            (y0, x0), (y1, x1) = (lo * (h, w)).astype(int), (hi * (h, w)).astype(int)
+            objs.append(f"<object><name>{names[c]}</name><difficult>"
+                        f"{int(rng.uniform() < 0.1)}</difficult><bndbox><xmin>{x0 + 1}</xmin>"
+                        f"<ymin>{y0 + 1}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox>"
+                        "</object>")
+        (voc / "Annotations" / f"{ids[-1]}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height></size>"
+            f"{''.join(objs)}</annotation>")
+    (voc / "ImageSets" / "Main" / "test.txt").write_text("\n".join(ids))
+    built = cache(config, phases=("test",))["test"]
+    boxes = sum(len(r["cls"]) for r in built)
+    difficult = sum(int(r["difficult"].sum()) for r in built)
+    if len(built) != EVAL_IMAGES or not difficult:
+        raise AssertionError(f"eval: the cache holds {len(built)} images, {difficult} difficult")
+    log(f"[eval] {EVAL_IMAGES} images in VOC2007 layout; cache/test.pkl built by "
+        f"yolojax_torch.data.cache.cache through [cache] datasets = "
+        f"{config.get('cache', 'datasets')} in {get_cache_dir(config)}: {boxes} boxes, "
+        f"{difficult} difficult")
+    rgb = lambda path: cv2_stub.imread(path)[:, :, ::-1]
+    return stub, rgb, built
+
+
+def eval_once(config, params, state, records, imread, what: str, expect: dict | None):
+    """``cli.eval.run_eval`` at 416, batch 16, with every launch counter set
+    to 0 just before and read just after; the counts must be ``expect`` (all
+    counters; None on the CPU).  Returns (result, launches, wall seconds)."""
+    from yolojax_torch.cli.common import build
+    from yolojax_torch.cli.eval import run_eval
+
+    category, _, model = build(config)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = run_eval(config, model, params, state, records, SIZE, EVAL_BATCH, category,
+                      imread=imread)
+    if expect is not None:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if expect is not None and launches != expect:
+        raise AssertionError(f"eval {what}: launched {launches}, expected {expect}")
+    dets = sum(len(d) for d in result["recorder"].dets.values())
+    if not (np.isfinite(result["map"]) and 0 <= result["map"] <= 1 and dets):
+        raise AssertionError(f"eval {what}: mAP {result['map']}, {dets} detections")
+    log(f"[eval] {what}: mAP {result['map']:.6f} over {len(result['ap'])} classes, {dets} "
+        f"detections, {len(records)} images in {seconds:.2f} s (Meter: "
+        f"{result['rate']:.1f} img/s); launches {launches}")
+    return result, launches, seconds
+
+
+def same_picks(got, want, what: str) -> int:
+    """Two recorders' detections, slot by slot: the same images and counts,
+    conf rtol 1e-5, corners atol 1e-5.  Returns the count of detections."""
+    count = 0
+    for c in sorted(set(got.dets) | set(want.dets)):
+        a, b = got.dets.get(c, []), want.dets.get(c, [])
+        if [d[0] for d in a] != [d[0] for d in b]:
+            raise AssertionError(f"{what}: class {c} holds other images or counts "
+                                 f"({len(a)} vs {len(b)} detections)")
+        for (img, conf, dmin, dmax), (_, wconf, wmin, wmax) in zip(a, b):
+            if (abs(conf - wconf) > 1e-5 * abs(wconf)
+                    or max(np.abs(dmin - wmin).max(), np.abs(dmax - wmax).max()) > 1e-5):
+                raise AssertionError(f"{what}: class {c} image {img} picks another detection "
+                                     f"(conf {conf} vs {wconf})")
+        count += len(a)
+    return count
+
+
+def eval_child(stub: Path, final: str, npz_map: float) -> dict:
+    """``python -m yolojax_torch.cli.eval`` in a child process on the card,
+    ``-f`` a ``.weights`` file written by ``tools/darknet.py::save_weights``
+    from the same checkpoint: its mAP must equal the npz run's."""
+    import importlib.util
+    import os
+
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.config import get_eval_db
+    from yolojax_torch.tools.darknet import save_weights
+
+    config = eval_config()
+    _, _, model = build(config)
+    params, state, meta = load_weights_auto(config, model, final)
+    weights = EVAL_DIR / "smoke.weights"
+    save_weights(str(weights), model, params, state, seen=int(meta.get("seen", 0)))
+    db, results = Path(get_eval_db(config)), EVAL_DIR / "dets.jsonl"
+    db.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if importlib.util.find_spec("cv2") is None:
+        env["PYTHONPATH"] += os.pathsep + str(stub)
+    argv = [sys.executable, "-m", "yolojax_torch.cli.eval", "-m", f"config/root={TRAIN_ROOT}",
+            "model/name=smoke", f"cache/voc_roots={EVAL_DIR / 'VOC2007'}", "-f", str(weights),
+            "--results", str(results)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+                          check=False)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"eval CLI exited {proc.returncode}")
+    printed = [line for line in proc.stdout.splitlines() if line.startswith("mAP = ")]
+    rows = [json.loads(line) for line in db.read_text().splitlines()]
+    dets = results.read_text().splitlines()
+    if (len(printed) != 1 or len(rows) != 1 or set(rows[0]) != {"time", "size", "map", "ap"}
+            or not dets):
+        raise AssertionError(f"eval CLI: printed {printed}, {len(rows)} eval.jsonl rows, "
+                             f"{len(dets)} result lines")
+    if rows[0]["map"] != npz_map or printed[0] != f"mAP = {npz_map:.4f}":
+        raise AssertionError(f"eval CLI on {weights.name}: mAP {rows[0]['map']} "
+                             f"({printed[0]}), the npz run's {npz_map}")
+    log(f"[eval] python -m yolojax_torch.cli.eval -f {weights.name} ({weights.stat().st_size} "
+        f"bytes, written by save_weights from {Path(final).name}) in a child process: "
+        f"'{printed[0]}', eval.jsonl row {sorted(rows[0])}, {len(dets)} result lines; mAP "
+        f"equals the npz run's; {seconds:.1f} s with start-up")
+    return {"map": rows[0]["map"], "seconds": seconds, "result_lines": len(dets)}
+
+
+def trained_heads(config, params, state, records, imread):
+    """The trained checkpoint's raw head on the first EVAL_BATCH eval images
+    at 416, bf16, as eval computes it."""
+    from yolojax_torch.cli.common import build
+    from yolojax_torch.config import get_canvas
+    from yolojax_torch.data.dataset import Dataset, collate
+    from yolojax_torch.data.transform import resize_from_config
+    from yolojax_torch.models.inference import Inference
+
+    _, _, model = build(config)
+    dataset = Dataset(records[:EVAL_BATCH], canvas=get_canvas(config), imread=imread)
+    batch = collate([dataset.load(i) for i in range(len(dataset))])
+    images, _, _ = resize_from_config(config)(torch.from_numpy(batch["canvas"]).cuda(),
+                                              torch.from_numpy(batch["hw"]).cuda(), SIZE)
+    with torch.inference_mode():
+        raw = model.apply_folded(Inference(model).fold(params, state), images)
+    return raw, torch.as_tensor(model.anchors, device="cuda")
+
+
+def fused_eval_times(card: str, trained) -> dict:
+    """The fused kernel at eval's point (B=16, topk 300, bf16) against its
+    plain version, one-call ms in turns and device µs (torch.profiler over 20
+    calls), with the bound: the eval geometries at bench and saturated
+    densities, and the trained head."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from yolojax_torch.kernels.postprocess_fused import postprocess_fused
+    from yolojax_torch.ops.postprocess import postprocess_raw
+
+    def device_us(fn, calls: int = 20) -> tuple[float, int]:
+        """Median device µs of the kernels the profiler recorded over ``calls``
+        calls, and their count: late in a long process it drops some device
+        events (seen on the H100), so a sum over the calls would read low."""
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "postprocess_fused" in e.name]
+        if not times:
+            raise AssertionError(f"torch.profiler recorded none of {calls} fused kernels")
+        return float(np.median(times)), len(times)
+
+    rng = np.random.default_rng(70)
+    cases = []
+    for b, h, w, a, c in EVAL_GEOMETRIES:
+        anchors = torch.from_numpy(rng.uniform(0.5, 4.0, (a, 2)).astype(np.float32)).cuda()
+        for density in ("bench", "saturated"):
+            raw = torch.from_numpy(seeded_raw(rng, b, h, w, a, c, density)).to("cuda",
+                                                                              torch.bfloat16)
+            cases.append((f"({b},{h},{w},{a * (5 + c)}) {density}", raw, anchors, c))
+    raw, anchors = trained
+    cases.append((f"{tuple(raw.shape)} trained (14 steps)", raw, anchors, raw.shape[-1] // 5 - 5))
+    out = {}
+    for what, raw, anchors, c in cases:
+        kernel = lambda: postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, EVAL_TOPK)
+        t_plain, t_kernel = in_turns(
+            lambda: postprocess_raw(raw, anchors, THRESHOLD, OVERLAP, EVAL_TOPK), kernel)
+        res = kernel()
+        n = raw.shape[1] * raw.shape[2] * anchors.shape[0]
+        picks = int(res.keep.sum())
+        bound = Bound().add(nbytes(raw, anchors, *res),
+                            {"f32": raw.shape[0] * n * (3 * c + 20) + picks * n * 16})
+        dev, recorded = device_us(kernel)
+        out[what] = {"ms": t_kernel, "plain_ms": t_plain, "device_us": dev,
+                     "bound_ms": bound.total, "bound_by": bound.by, "picks": picks}
+        log(f"[time] {card} | fused at eval's point, {what} bf16, topk {EVAL_TOPK}: kernel "
+            f"{t_kernel:.4f} ms one-call, {dev:.1f} us device (median of the {recorded} of 20 "
+            f"calls the profiler recorded); plain {t_plain:.4f} ms; bound {bound.total:.5f} ms "
+            f"by {bound.by}; {picks} picks")
+    return out
+
+
+def eval_phase(card: str, final: str) -> tuple[dict, dict]:
+    """Eval on the train phase's checkpoint: the cache builder, run_eval on the
+    card in bf16 (the main path), f32 card against CPU, the eval CLI from a
+    ``.weights`` file, ``pallas = nms``, the fused kernel on the trained head.
+    Returns (launches on the main path and the nms run, the eval line)."""
+    from yolojax_torch.cli.common import build, load_weights_auto
+
+    t0 = time.perf_counter()
+    stub, imread, records = eval_workspace()
+    config = eval_config()
+    names, _, model = build(config)
+    params, state, meta = load_weights_auto(config, model, final, device="cuda")
+    if meta.get("step") != TRAIN_STEPS + TRAIN_RESUME_STEPS:
+        raise AssertionError(f"eval: {final} holds step {meta.get('step')}")
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    main, launches, seconds = eval_once(config, params, state, records, imread,
+                                        "bf16 on the card (fused decode+NMS)",
+                                        per_batch(postprocess_fused=batches))
+    log("[eval] AP per class: " + ", ".join(f"{names[c]} {ap:.4f}"
+                                            for c, ap in sorted(main["ap"].items())))
+
+    trained = trained_heads(config, params, state, records, imread)
+    raw, anchors = trained
+    c = raw.shape[-1] // anchors.shape[0] - 5
+    fused_err = max(fused_case(raw.to(dtype), anchors, c, f"{tuple(raw.shape)} trained "
+                               f"{str(dtype)[6:]} topk {EVAL_TOPK}", EVAL_TOPK)
+                    for dtype in (torch.float32, torch.bfloat16))
+
+    nms_cfg = eval_config("model/pallas=nms")
+    nms, nms_launches, _ = eval_once(nms_cfg, params, state, records, imread,
+                                     "bf16 on the card with pallas = nms (nms_select)",
+                                     per_batch(nms_select=batches))
+    picks = same_picks(nms["recorder"], main["recorder"], "pallas = nms against fusedpost")
+    if nms["map"] != main["map"]:
+        raise AssertionError(f"eval: pallas = nms gives mAP {nms['map']}, fusedpost "
+                             f"{main['map']}")
+    log(f"[eval] pallas = nms picks what fusedpost picks: all {picks} detections, slot by "
+        f"slot; the same mAP {nms['map']:.6f}")
+
+    f32 = {}
+    for device in ("cuda", "cpu"):
+        cfg = eval_config("model/dtype=float32")
+        p, s, _ = load_weights_auto(cfg, build(cfg)[2], final, device=device)
+        where = "card" if device == "cuda" else "CPU"
+        f32[device], _, _ = eval_once(cfg, p, s, records, imread, f"f32 on the {where}",
+                                      per_batch(postprocess_fused=batches)
+                                      if device == "cuda" else None)
+    gap = {"map": abs(f32["cuda"]["map"] - f32["cpu"]["map"]),
+           "ap": max(abs(f32["cuda"]["ap"][k] - v) for k, v in f32["cpu"]["ap"].items())}
+    log(f"[eval] f32 card against CPU (TF32 off): mAP {f32['cuda']['map']:.6f} vs "
+        f"{f32['cpu']['map']:.6f}, gap {gap['map']:.3g}; largest class AP gap {gap['ap']:.3g} "
+        f"(bounds {EVAL_PARITY})")
+    if f32["cuda"]["ap"].keys() != f32["cpu"]["ap"].keys() or any(
+            gap[k] > EVAL_PARITY[k] for k in gap):
+        raise AssertionError(f"eval: the card's f32 eval differs from the CPU's: {gap}")
+
+    child = eval_child(stub, final, main["map"])
+    times = fused_eval_times(card, trained)
+    result = {"card": card, "model": "Darknet-19", "dtype": "bfloat16", "size": SIZE,
+              "images": EVAL_IMAGES, "batch": EVAL_BATCH, "topk": EVAL_TOPK,
+              "threshold": THRESHOLD, "map": main["map"],
+              "ap": {names[k]: v for k, v in main["ap"].items()},
+              "img_per_s": EVAL_IMAGES / seconds, "meter_img_per_s": main["rate"],
+              "seconds": seconds, "nms_map": nms["map"], "detections": picks,
+              "f32_card_map": f32["cuda"]["map"], "f32_cpu_map": f32["cpu"]["map"],
+              "f32_gap": gap, "weights_map": child["map"], "fused_trained_err": fused_err,
+              "fused_times": times, "phase_seconds": time.perf_counter() - t0}
+    log(f"[eval] {card} | eval at {SIZE}, bf16, batch {EVAL_BATCH}: {EVAL_IMAGES} images in "
+        f"{seconds:.2f} s = {result['img_per_s']:.1f} img/s (host AP included); the eval "
+        f"phase took {result['phase_seconds']:.1f} s")
+    return {k: launches[k] + nms_launches[k] for k in launches}, result
 
 
 def main() -> None:
@@ -1597,8 +1960,9 @@ def main() -> None:
         return
     t0 = time.perf_counter()
     host_split(card)
-    err = {"postprocess_fused": fused_vs_plain(), **dw_vs_plain(), "nms_select": nms_vs_plain(),
-           **layout_vs_plain()}
+    err = {"postprocess_fused": max(fused_vs_plain(),
+                                    fused_vs_plain(EVAL_GEOMETRIES, EVAL_TOPK, seed=1)),
+           **dw_vs_plain(), "nms_select": nms_vs_plain(), **layout_vs_plain()}
     fused_one_launch()
     cuda_tests()
     # each model's times right after its path, so Darknet's stay comparable
@@ -1623,7 +1987,8 @@ def main() -> None:
     detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
     del tiny_model, tiny_folded, tiny_run
     layout_t = layout_times(card)
-    train_launches, train_result = train_phase(card)
+    train_launches, train_result, final = train_phase(card)
+    eval_launches, eval_result = eval_phase(card, final)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each); ms,
@@ -1632,7 +1997,8 @@ def main() -> None:
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
-    paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches)
+    paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
+             eval_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -1648,6 +2014,7 @@ def main() -> None:
                "maxpool2x2": ("maxpool2x2.cu", "yolojax/kernels/pool.py:40"),
                "reorg_s2d": ("reorg_s2d.cu", "yolojax/kernels/reorg.py:38")}
     print(json.dumps({"train": train_result}), flush=True)
+    print(json.dumps({"eval": eval_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

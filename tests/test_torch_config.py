@@ -1,6 +1,7 @@
 """The port's own copies of yolojax's jax-free modules, held against the
 originals on the same inputs: ``config`` (load_config with overlays and
-``-m`` mods, get_canvas, get_cache_dir, get_model_dir, get_category_path,
+``-m`` mods, get_canvas, get_root_dir, get_cache_dir, get_model_dir,
+get_eval_db, get_category_path, parse_attr on modules and names,
 parse_attr_list, add_config_arguments), ``category`` (get_category, get_anchors), ``cli``
 (make_parser, setup) and ``utils.visualize`` (draw_boxes).  Each must give
 exactly what the original gives.
@@ -54,6 +55,23 @@ def test_parse_attr_list_resolves_to_the_port():
         "yolojax_torch.utils.train"
 
 
+@pytest.mark.parametrize("path", ["yolojax.data.voc", "yolojax.data.coco", "yolojax.eval_ap",
+                                  " yolojax.data.cache "])
+def test_parse_attr_resolves_a_module_path_to_the_port(path):
+    got, want = tconfig.parse_attr(path), jconfig.parse_attr(path)
+    assert got.__name__ == "yolojax_torch." + want.__name__[len("yolojax."):]
+    assert hasattr(got, "load") or hasattr(got, "evaluate") or hasattr(got, "cache")
+
+
+def test_parse_attr_raises_on_a_module_that_fails_to_import(tmp_path, monkeypatch):
+    (tmp_path / "broken_dataset_module.py").write_text("import no_such_dependency_xyz\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    with pytest.raises(ModuleNotFoundError, match="no_such_dependency_xyz"):
+        tconfig.parse_attr("broken_dataset_module")
+    with pytest.raises(ModuleNotFoundError, match="no_such_dependency_xyz"):
+        tconfig.parse_attr("broken_dataset_module.load")
+
+
 def test_load_config_defaults_and_mods_match():
     assert tconfig.default_config_path() == jconfig.default_config_path()
     assert _items(tconfig.load_config()) == _items(jconfig.load_config())
@@ -75,6 +93,8 @@ def test_paths_and_canvas_match(overlay, monkeypatch, tmp_path):
         assert tconfig.get_model_dir(got) == jconfig.get_model_dir(want)
         assert tconfig.get_cache_dir(got) == jconfig.get_cache_dir(want)
         assert tconfig.get_category_path(got) == jconfig.get_category_path(want)
+        assert tconfig.get_root_dir(got) == jconfig.get_root_dir(want)
+        assert tconfig.get_eval_db(got) == jconfig.get_eval_db(want)
 
 
 @pytest.mark.parametrize("overlay", ["root", "tiny", "mobilenet"])

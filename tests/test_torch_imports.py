@@ -41,7 +41,12 @@ def test_the_walk_sees_every_module():
             "yolojax_torch/cli/__init__.py", "yolojax_torch/utils/visualize.py",
             "yolojax_torch/kernels/_build.py", "yolojax_torch/cli/train.py",
             "yolojax_torch/parallel/mesh.py", "yolojax_torch/data/loader.py", "chip_smoke.py",
-            "tests/test_torch_cuda_kernels.py", "tests/test_torch_cuda_nms_pool_reorg.py"} <= names
+            "yolojax_torch/eval_ap.py", "yolojax_torch/cli/eval.py", "yolojax_torch/cli/cache.py",
+            "yolojax_torch/cli/estimate.py", "yolojax_torch/cli/convert_darknet.py",
+            "yolojax_torch/data/voc.py", "yolojax_torch/data/coco.py",
+            "yolojax_torch/data/synth.py", "yolojax_torch/tools/darknet.py",
+            "yolojax_torch/tools/kmeans.py", "tests/test_torch_cuda_kernels.py",
+            "tests/test_torch_cuda_nms_pool_reorg.py", "tests/test_torch_cuda_eval.py"} <= names
     assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
     # the check itself: a forbidden import is found, the port's own is not
     assert _forbidden("yolojax.config") and _forbidden("jax.numpy") and _forbidden("jax")
@@ -72,9 +77,13 @@ sys.path.insert(0, sys.argv[1] + "/tests")
 for name in sys.argv[2:]:
     importlib.import_module(name)
 from yolojax_torch.cli import common, detect, make_parser, setup
+from yolojax_torch.config import parse_attr, parse_attr_list
 config = setup(make_parser("x").parse_args(["-m", "model/pallas=nms fusedpost pool"]))
 category, anchors, model = common.build(config)
 assert len(category) == 20 and anchors.shape == (5, 2)
+assert [m.__name__ for m in parse_attr_list(config.get("cache", "datasets"))] == \
+    ["yolojax_torch.data.voc"]
+assert parse_attr("yolojax.data.coco").__name__ == "yolojax_torch.data.coco"
 print("standalone", type(model).__name__)
 """
 

@@ -150,8 +150,12 @@ def test_checkpoint_shape_mismatch_raises(rng, tmp_path):
     _, _, model = build(config)
     with pytest.raises(ValueError, match="shape"):
         load_weights_auto(config, model, path)
-    with pytest.raises(NotImplementedError):
-        load_weights_auto(config, model, "model.weights")
+    weights = tmp_path / "model.weights"        # a header and one float: no layer fits it
+    np.concatenate([np.asarray([0, 2, 0], np.int32).view(np.uint8),
+                    np.asarray([0], np.uint64).view(np.uint8),
+                    np.ones(1, np.float32).view(np.uint8)]).tofile(weights)
+    with pytest.raises(ValueError, match="truncated"):
+        load_weights_auto(config, model, str(weights))
 
 
 def test_config_resolves_to_the_port():
@@ -170,8 +174,9 @@ def test_config_resolves_to_the_port():
 
 
 @pytest.mark.parametrize("path,error,missing", [
-    ("yolojax.data.voc.load", ModuleNotFoundError, "yolojax_torch.data.voc"),
-    ("yolojax.data.cache.cache", AttributeError, "yolojax_torch.data.cache.cache"),
+    ("yolojax.data.device_cache.DeviceDataset", ModuleNotFoundError,
+     "yolojax_torch.data.device_cache"),
+    ("yolojax.config.config_digest", AttributeError, "yolojax_torch.config.config_digest"),
 ])
 def test_unported_config_values_name_the_missing_part(path, error, missing):
     with pytest.raises(error, match=missing):

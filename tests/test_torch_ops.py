@@ -71,6 +71,21 @@ def test_decode_matches_jax(rng, b, h, w, a, c):
                                    rtol=1e-6, atol=1e-6, err_msg=name)
 
 
+@pytest.mark.parametrize("c", [1, 3, 20, 80])
+def test_decode_softmax_sums_in_class_order(rng, c):
+    """The denominator is added class by class, as the fused kernel and the
+    reference's Pallas kernel add it: the same bits as a left-to-right
+    float32 sum of torch's own exp(x − max)."""
+    x = torch.from_numpy((rng.standard_normal((64, c)) * 3).astype(np.float32))
+    e = torch.exp(x - x.amax(-1, keepdim=True)).numpy()
+    denom = e[:, 0].copy()
+    for q in range(1, c):
+        denom = denom + e[:, q]
+    got = tdecode.softmax_in_class_order(x).numpy()
+    assert np.array_equal(got, e / denom[:, None])
+    assert np.array_equal(tdecode.softmax_in_class_order(x[None])[0].numpy(), got)
+
+
 def test_iou_pairwise_matches_jax(rng):
     a_min, a_max = _boxes(rng, (64,))
     b_min, b_max = _boxes(rng, (64,))

@@ -213,11 +213,12 @@ def test_train_cli_runs_resumes_and_crosses_packages(workspace):
     assert out.exists() and "7.npz" in log
 
 
-def test_train_cli_refuses_what_is_not_ported(workspace):
+def test_train_cli_refuses_what_is_not_ported(workspace, monkeypatch):
     from yolojax_torch.cli.train import main
 
     _, cfg = workspace
     with pytest.raises(NotImplementedError, match="device_cache"):
         main(cfg + ["--device", "cpu", "-m", "data/device_dataset=1"])
-    with pytest.raises(NotImplementedError, match="weights"):
-        main(cfg + ["--device", "cpu", "-f", "darknet19.weights"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+        main(cfg + ["--device", "cpu"])

@@ -25,11 +25,19 @@ def build(config):
 
 def load_weights_auto(config, model, path: str | None = None, resume: bool = False,
                       rng_seed: int = 0, reinit_head: bool = False, device="cpu"):
-    """Resolve (params, state, meta) on ``device``: an explicit npz ``path`` >
-    ``resume`` from the newest npz in the model dir > a fresh init drawn from
-    ``torch.Generator`` seeded with ``rng_seed``.  ``reinit_head`` is for
-    darknet ``.weights`` whose class count differs, which the port cannot
-    import yet."""
+    """Resolve (params, state, meta) on ``device``, as the JAX package's
+    train and eval do: an explicit ``path`` (npz checkpoint or darknet
+    ``.weights``) > ``resume`` from the newest npz in the model dir > a fresh
+    init drawn from ``torch.Generator`` seeded with ``rng_seed``.
+    ``reinit_head`` keeps a fresh head where a ``.weights`` file's head was
+    trained for another class count (finetuning)."""
+    if path is not None and path.endswith(".weights"):
+        from ..tools.darknet import load_weights
+
+        params, state, seen = load_weights(path, model, reinit_head_on_mismatch=reinit_head,
+                                           head_rng_seed=rng_seed, device=device)
+        _LOG.info("imported darknet weights %s (seen=%d)", path, seen)
+        return params, state, {"seen": seen}
     params, state = model.init(torch.Generator().manual_seed(rng_seed), device)
     if path is None and resume:
         path = ckpt.latest(get_model_dir(config))
@@ -37,9 +45,6 @@ def load_weights_auto(config, model, path: str | None = None, resume: bool = Fal
             _LOG.info("no checkpoint to resume; fresh init")
     if path is None:
         return params, state, {}
-    if path.endswith(".weights"):
-        raise NotImplementedError(f"darknet .weights import is not ported yet ({path}, "
-                                  f"reinit_head={reinit_head})")
     trees, meta = ckpt.load(path, ("params", "state"))
     loaded = ckpt.from_jax(trees.get("params", {}), trees.get("state", {}), device)
     for fresh, got, tree in zip((params, state), loaded, ("params", "state")):

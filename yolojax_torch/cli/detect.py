@@ -18,7 +18,7 @@ import torch
 
 from ..config import get_canvas
 from ..data.transform import resize_from_config
-from ..models.inference import Inference
+from ..models.inference import Inference, to_host
 from ..utils.visualize import draw_boxes
 from . import make_parser, setup
 from .common import build, load_weights_auto
@@ -58,8 +58,7 @@ def detect_image(config, model, params, state, image: np.ndarray, size: int):
     resize = resize_from_config(config)
     images, scale, pad = resize(torch.from_numpy(canvas[None]).to(device),
                                 torch.from_numpy(hw[None]).to(device), size)
-    out = [t.cpu().numpy() for t in run(folded, images)]
-    yx_min, yx_max, conf, keep = out
+    yx_min, yx_max, conf, keep = to_host(run(folded, images))
     scale, pad = scale[0].cpu().numpy(), pad[0].cpu().numpy()
 
     boxes_min, boxes_max, cls, confs = [], [], [], []
@@ -84,7 +83,8 @@ def main(argv=None):
     parser = make_parser("detect objects in an image")
     parser.add_argument("input", help="image path")
     parser.add_argument("-f", "--file", default=None,
-                        help="checkpoint .npz (default: latest in the model dir)")
+                        help="checkpoint .npz or darknet .weights "
+                             "(default: latest in the model dir)")
     parser.add_argument("--size", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
     parser.add_argument("-o", "--output", default=None, help="output image path")

@@ -18,8 +18,10 @@ the uninterrupted one would have), and jax.random and torch draw different
 numbers, so a port run reproduces a JAX run's input sizes and batch order
 but not its pixels.  ``[train] prewarm`` runs one forward and backward per
 bucketed size on a dummy batch (the allocator and cuDNN warm up) and keeps
-nothing of it.  Not ported yet: data-parallel training, the device-resident
-dataset (``[data] device_dataset``) and darknet ``.weights`` finetuning.
+nothing of it.  ``-f x.weights`` finetunes from darknet weights, with a fresh
+head where the file's was trained for another class count.  Not ported yet:
+data-parallel training and the device-resident dataset (``[data]
+device_dataset``).
 
 The RSS watchdog checkpoints and exec-restarts the process with ``-r`` when
 its resident memory passes ``[train] rss_restart_fraction`` of the host's.
@@ -351,7 +353,7 @@ def train_parser():
     parser.add_argument("-r", "--resume", action="store_true",
                         help="resume from the latest checkpoint in the model dir")
     parser.add_argument("-f", "--finetune", default=None,
-                        help="initial weights: checkpoint .npz")
+                        help="initial weights: checkpoint .npz or darknet .weights")
     parser.add_argument("--batch", type=int, default=None)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--freeze", default=None, metavar="LAYERS",

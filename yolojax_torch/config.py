@@ -7,13 +7,14 @@ imports nothing of the JAX package:
 * ``-c extra.ini`` overlays additional files, later files win;
 * ``-m section/key=value`` applies ad-hoc modifications (repeatable);
 * values that name code are dotted paths, resolved by :func:`parse_attr`;
-* :func:`get_cache_dir` / :func:`get_model_dir` key the dataset-cache and
-  checkpoint directories off the config.
+* :func:`get_cache_dir` / :func:`get_model_dir` / :func:`get_eval_db` key the
+  dataset-cache, checkpoint and eval-log paths off the config.
 
 What differs is the resolution of dotted paths: a value naming ``yolojax.``
-code resolves to its ``yolojax_torch.`` counterpart, so one ``config.ini``
-drives both packages.  A value whose counterpart is not ported yet raises an
-error naming it; it never falls back to the jax module.
+code (a module, or a name in one) resolves to its ``yolojax_torch.``
+counterpart, so one ``config.ini`` drives both packages.  A value whose
+counterpart is not ported yet raises an error naming it; it never falls back
+to the jax module.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Any, Iterable, Sequence
 import torch
 
 __all__ = ["parse_attr", "parse_attr_list", "torch_dtype", "load_config", "modify_config",
-           "get_canvas", "get_cache_dir", "get_model_dir", "get_category_path",
+           "get_canvas", "get_root_dir", "get_cache_dir", "get_model_dir", "get_eval_db",
+           "get_category_path",
            "default_config_path", "add_config_arguments"]
 
 _JAX_PREFIX = "yolojax."
@@ -90,11 +92,19 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def parse_attr(path: str) -> Any:
-    """Resolve a dotted config path (``pkg.mod.Symbol``) in the port: a
-    ``yolojax.`` prefix becomes ``yolojax_torch.``."""
+    """Resolve a dotted config path in the port: a module (``pkg.mod``, e.g. a
+    dataset module of ``[cache] datasets``) or a name in one
+    (``pkg.mod.Symbol``).  A ``yolojax.`` prefix becomes ``yolojax_torch.``."""
     target = path.strip()
     if target.startswith(_JAX_PREFIX):
         target = _PORT_PREFIX + target[len(_JAX_PREFIX):]
+    try:  # the whole path may itself be a module
+        return importlib.import_module(target)
+    except ModuleNotFoundError as e:
+        # only a missing ``target`` (or a parent of it) means "not a module";
+        # a module that fails on a missing dependency of its own raises
+        if not (e.name and (target + ".").startswith(e.name + ".")):
+            raise
     module_name, _, attr = target.rpartition(".")
     if not module_name:
         raise ValueError(f"cannot resolve bare name {path!r}; need a dotted path")
@@ -117,7 +127,8 @@ def parse_attr_list(value: str) -> list[Any]:
     return [parse_attr(p) for p in value.split()]
 
 
-def _root(config: configparser.ConfigParser) -> str:
+def get_root_dir(config: configparser.ConfigParser) -> str:
+    """The artifact root, ``[config] root``."""
     return _expand(config.get("config", "root", fallback="~/.yolojax"))
 
 
@@ -128,7 +139,7 @@ def _category_tag(config: configparser.ConfigParser) -> str:
 def get_cache_dir(config: configparser.ConfigParser) -> str:
     """Directory holding the pickled dataset caches for the configured
     category: ``<root>/cache/<category>``."""
-    return os.path.join(_root(config), "cache", _category_tag(config))
+    return os.path.join(get_root_dir(config), "cache", _category_tag(config))
 
 
 def get_model_dir(config: configparser.ConfigParser) -> str:
@@ -136,7 +147,13 @@ def get_model_dir(config: configparser.ConfigParser) -> str:
     name: ``<root>/model/<category>/<Model>/<name>``."""
     model = config.get("model", "dnn").strip().rsplit(".", 1)[-1]
     name = config.get("model", "name", fallback="yolojax")
-    return os.path.join(_root(config), "model", _category_tag(config), model, name)
+    return os.path.join(get_root_dir(config), "model", _category_tag(config), model, name)
+
+
+def get_eval_db(config: configparser.ConfigParser) -> str:
+    """The eval CLI's log of results, one JSON row per run, beside the
+    checkpoints."""
+    return os.path.join(get_model_dir(config), "eval.jsonl")
 
 
 def get_canvas(config: configparser.ConfigParser) -> int:

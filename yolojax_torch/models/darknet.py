@@ -25,7 +25,22 @@ import torch
 from . import LayerDef, ModelBase
 from .engine import add_kernel_weights, fold_plan, plan_convs, resolve_in_channels, run_plan
 
-__all__ = ["Darknet", "Tiny"]
+__all__ = ["Darknet", "Tiny", "init_layer"]
+
+
+def init_layer(d, generator: torch.Generator):
+    """Fresh (params, BN state) of one conv: a He-normal OIHW weight, BN γ=1
+    β=0 with running mean 0 / var 1, or a zero bias without BN (state {})."""
+    fan_in = d.ksize * d.ksize * d.in_ch // d.groups
+    w = torch.randn((d.out_ch, d.in_ch // d.groups, d.ksize, d.ksize),
+                    generator=generator, dtype=torch.float32)
+    p = {"w": w * math.sqrt(2.0 / fan_in)}
+    zeros = torch.zeros(d.out_ch, dtype=torch.float32)
+    if not d.bn:
+        p["b"] = zeros
+        return p, {}
+    p["gamma"], p["beta"] = torch.ones_like(zeros), zeros.clone()
+    return p, {"mean": zeros.clone(), "var": torch.ones_like(zeros)}
 
 
 @dataclass
@@ -43,22 +58,14 @@ class _PlanModel(ModelBase):
         return plan_convs(self.plan)
 
     def init(self, generator: torch.Generator, device="cpu"):
-        """Fresh (params, state): He-normal OIHW conv weights, BN γ=1 β=0,
-        running mean 0 / var 1.  Drawn on the CPU from ``generator``, so a seed
-        gives the same weights on every device."""
+        """Fresh (params, state) of every conv (:func:`init_layer`), drawn on
+        the CPU from ``generator``, so a seed gives the same weights on every
+        device."""
         params, state = {}, {}
         for d in self.layer_defs:
-            fan_in = d.ksize * d.ksize * d.in_ch // d.groups
-            w = torch.randn((d.out_ch, d.in_ch // d.groups, d.ksize, d.ksize),
-                            generator=generator, dtype=torch.float32)
-            p = {"w": w * math.sqrt(2.0 / fan_in)}
-            zeros = torch.zeros(d.out_ch, dtype=torch.float32)
-            if d.bn:
-                p["gamma"], p["beta"] = torch.ones_like(zeros), zeros.clone()
-                state[d.name] = {"mean": zeros.clone(), "var": torch.ones_like(zeros)}
-            else:
-                p["b"] = zeros
-            params[d.name] = p
+            params[d.name], s = init_layer(d, generator)
+            if s:
+                state[d.name] = s
         move = lambda tree: {k: {n: v.to(device) for n, v in lp.items()}
                              for k, lp in tree.items()}
         return move(params), move(state)

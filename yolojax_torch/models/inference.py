@@ -1,6 +1,8 @@
 """Inference wrapper — counterpart of ``yolojax/models/inference.py``:
-backbone forward + decode, and the detect path (forward → decode →
-per-class NMS) shared by detect, eval and export."""
+backbone forward + decode, the detect path (forward → decode → per-class
+NMS) shared by detect, eval and export, and :func:`to_host`, which brings
+its output to the host.  ``detect_fn(mesh=…)``, the batch sharded over
+devices, is not ported: it waits for data-parallel training."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from ..ops.decode import Detections, decode
 from ..ops.postprocess import PostProcessed, postprocess
 from . import kernel_active
 
-__all__ = ["Inference"]
+__all__ = ["Inference", "to_host"]
 
 
 class Inference:
@@ -64,3 +66,17 @@ class Inference:
             return postprocess(det, threshold, overlap, topk)
 
         return run
+
+
+def to_host(out: PostProcessed) -> PostProcessed:
+    """``out`` as numpy arrays.  Where its fields are views of one allocation
+    (the fused kernel's wrapper writes them so), the allocation comes over in
+    one device→host copy, and the fields are rebuilt as views of it on the
+    host; else each field is copied."""
+    storage = out.conf.untyped_storage()
+    if not all(t.untyped_storage().data_ptr() == storage.data_ptr() for t in out):
+        return PostProcessed(*(t.cpu().numpy() for t in out))
+    whole = torch.empty(0, dtype=torch.uint8, device=out.conf.device).set_(storage).cpu()
+    host = whole.untyped_storage()
+    return PostProcessed(*(torch.empty(0, dtype=t.dtype).set_(host, t.storage_offset(), t.shape,
+                                                             t.stride()).numpy() for t in out))

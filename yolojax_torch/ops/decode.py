@@ -8,7 +8,13 @@ permutes at import time), so nothing is swapped here::
     size_hw   = anchor_hw * exp(clip(t_hw, ±12)) / (H, W)
     conf      = sigmoid(t_o) * softmax(t_cls)
 
-Candidates are flattened as ``n = (y*W + x)*A + a``.
+Candidates are flattened as ``n = (y*W + x)*A + a``.  The softmax is the
+reference's op order (``yolojax/kernels/nms.py::_fused_kernel``): max,
+exp(x − max), the denominator summed in class order, a real division.  The
+fused CUDA kernel computes the same, so the two give the same scores bit for
+bit on the card; ``torch.softmax`` sums in an order of its own (a warp tree
+on CUDA), an ulp apart, and greedy NMS then takes near-equal scores in
+another order.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["decode", "Detections"]
+__all__ = ["decode", "Detections", "softmax_in_class_order"]
 
 
 class Detections(NamedTuple):
@@ -28,6 +34,15 @@ class Detections(NamedTuple):
     iou: torch.Tensor     # (B, N) objectness
     prob: torch.Tensor    # (B, N, C) class probabilities
     conf: torch.Tensor    # (B, N, C) = iou * prob
+
+
+def softmax_in_class_order(t: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis, its denominator added class by class."""
+    e = torch.exp(t - t.amax(dim=-1, keepdim=True))
+    denom = e[..., 0]
+    for q in range(1, e.shape[-1]):
+        denom = denom + e[..., q]
+    return e / denom[..., None]
 
 
 def decode(raw: torch.Tensor, anchors) -> Detections:
@@ -50,7 +65,7 @@ def decode(raw: torch.Tensor, anchors) -> Detections:
     yx_max = center + half
 
     iou = torch.sigmoid(t_o)
-    prob = torch.softmax(t_cls, dim=-1)
+    prob = softmax_in_class_order(t_cls)
     conf = iou[..., None] * prob
 
     n = h * w * a

@@ -1,13 +1,15 @@
 """IoU in the repo-wide yx-corner convention — counterpart of
-``yolojax/ops/iou.py`` (the torch half; the numpy mirror stays with the host
-tooling that is not ported).  Boxes are ``(yx_min, yx_max)`` pairs of shape
-``(..., 2)`` holding (y, x)."""
+``yolojax/ops/iou.py``: the torch functions, and ``np_iou_matrix``, the
+numpy IoU that the host-side AP matcher (``eval_ap.py``) uses.  Boxes are
+``(yx_min, yx_max)`` pairs of shape ``(..., 2)`` holding (y, x)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["area", "intersection", "iou_matrix", "iou_pairwise", "wh_iou_matrix"]
+__all__ = ["area", "intersection", "iou_matrix", "iou_pairwise", "np_iou_matrix",
+           "wh_iou_matrix"]
 
 _EPS = 1e-10
 
@@ -50,3 +52,16 @@ def wh_iou_matrix(hw1, hw2):
     a1 = (hw1[..., 0] * hw1[..., 1])[..., :, None]
     a2 = (hw2[..., 0] * hw2[..., 1])[..., None, :]
     return inter / torch.clamp(a1 + a2 - inter, min=_EPS)
+
+
+def np_iou_matrix(yx_min1, yx_max1, yx_min2, yx_max2):
+    """Pairwise IoU matrix in numpy (..., N1, N2), for host-side matching."""
+    ymin = np.maximum(yx_min1[..., :, None, :], yx_min2[..., None, :, :])
+    ymax = np.minimum(yx_max1[..., :, None, :], yx_max2[..., None, :, :])
+    hw = np.maximum(ymax - ymin, 0.0)
+    inter = hw[..., 0] * hw[..., 1]
+    hw1 = np.maximum(yx_max1 - yx_min1, 0.0)
+    hw2 = np.maximum(yx_max2 - yx_min2, 0.0)
+    a1 = (hw1[..., 0] * hw1[..., 1])[..., :, None]
+    a2 = (hw2[..., 0] * hw2[..., 1])[..., None, :]
+    return inter / np.maximum(a1 + a2 - inter, _EPS)

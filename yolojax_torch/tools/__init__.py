@@ -1,1 +1,2 @@
-"""Measurement tools of the port that run on the card."""
+"""Tools of the port: darknet ``.weights`` import and export, anchor k-means,
+and the kernel-time measurement that runs on the card."""
