@@ -23,8 +23,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
      and COCO at 416 and 608, bench and saturated densities: ``keep`` and
      pick order identical (every kept slot the plain pick's box), conf rtol
      1e-5 (2e-5 at C=80), corners atol 1e-5; prints the longest compacted
-     row (candidates above the threshold) per case; then ``torch.profiler``
-     over one call at each point must show one device kernel;
+     row (candidates above the threshold) per case; then a CUDA graph
+     capture of one call at each point must hold one node, the fused kernel;
    * dwconv3x3 and dwsep — MobileNet-416's routed shapes at batch 8, an odd
      spatial size, channel counts that are not multiples of 128 (and, for
      dwsep, C = 36: element loads), a last pixel tile that is not full
@@ -70,10 +70,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
    checks: nms_select 1, maxpool2x2 3 and reorg_s2d 1 launch per batch; the
    dense batch; the raw head bit-identical to the same forward without
    ``pool reorg`` in f32 (TF32 off) and, where cuDNN allows, in bf16 (else
-   within MobileNet's 1 % bound, said so); ``torch.profiler`` over one
+   within MobileNet's 1 % bound, said so); a CUDA graph capture of one
    forward: the three pools and the reorg run their fused (bias)
-   instantiations, no ``aten::cat``, and the device kernels per forward with
-   and without ``pool reorg``; then ``detect_image``;
+   instantiations, and the device kernels per forward with and without
+   ``pool reorg``; ``torch.profiler``'s host ops: no ``aten::cat``; then
+   ``detect_image``;
 8. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
    with ``pallas = nms fusedpost pool``: maxpool2x2 2 (fused) and fused
    decode+NMS 1 launch per batch, a (B,13,13,125) raw head, the dense batch,
@@ -124,10 +125,34 @@ Phases, each of which passes or raises (any failure exits non-zero):
    stand-in ``cv2`` that reads PPM goes on the child's path where OpenCV is
    not installed; the in-process runs read through it too); the fused
    kernel's one-call and device times at eval's point beside its bound and
-   its plain version.  Prints ``{"eval": {...}}``.
+   its plain version.  Prints ``{"eval": {...}}``;
+12. deploy and tools — the native host NMS built with g++ (a build failure
+   fails the phase); on the train phase's checkpoint ``detect_fn_host``
+   (forward on the card, NMS on the host) against ``detect_fn`` (the fused
+   kernel) on 3 batches of 8 at ``[detect]``'s point and at 0.005: ``keep``,
+   pick order, conf and corners bit for bit; BASELINE config 1:
+   ``detect_image`` with the model and image on the CPU in f32 (the host
+   path) against the card's, the same classes and boxes within 1e-4, and
+   the CPU path's time for one image; ``cli/export.py::export_program`` of
+   the four paths at 416, B=8, saved, with the custom-op calls each routes
+   (MobileNet dwconv 4, dwsep 7; Darknet-s2d pool 3, reorg 1; Tiny pool 2),
+   replayed in one child process (``import yolojax_torch.kernels.ops``,
+   ``torch.export.load``) bit-identical to the eager forward + decode, with
+   those launches counted; the ONNX export of Darknet's card weights passes
+   ``check_model`` and equals the CPU's byte for byte; ``cli/prune.py`` at
+   0.3 on the checkpoint, rebuilt with ``model/channels``, ``detect_fn``
+   with one fused launch a batch; a seeded Darknet-s2d with spread γ,
+   pruned, with ``pool reorg`` bit-identical in f32 to the forward without,
+   with the launches the routing gives at the pruned widths;
+   ``receptive_field`` of Darknet-19 at 416 in f32, card against CPU (the
+   same support box, effective RF within 1e-3 relative); ``plan_to_dot`` of
+   the four paths; ``demo_graph``'s export dump of Darknet-s2d;
+   ``demo_data``'s samples from the train cache; ``entry()`` on the card.
+   Prints ``{"deploy": {...}}``.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
-paths, the eval path's two runs included, max abs err, ms, plain_ms,
+paths, the eval path's two runs and the deploy phase's detect, export
+replays and pruned models included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Times are information, not a benchmark.  The train path runs no
@@ -138,6 +163,7 @@ package trains with every Pallas kernel off.  Eval runs the fused decode+NMS
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -158,6 +184,7 @@ GEOMETRIES = [(8, 13, 13, 5, 20), (8, 19, 19, 5, 20), (2, 13, 13, 5, 80), (1, 4,
 EVAL_GEOMETRIES = [(16, 13, 13, 5, 20), (16, 19, 19, 5, 20), (16, 13, 13, 5, 80),
                    (16, 19, 19, 5, 80)]
 REPS = 7
+PROFILE_TRIES = 3           # torch.profiler captures tried before a profile is "not measured"
 SIZE = 416                  # input size of every model, config.ini's [data] sizes
 TIME_BATCHES = (8, 128)
 MOBILENET_TOKENS = "nms fusedpost dwsep dwconv"
@@ -363,14 +390,73 @@ def fused_vs_plain(geometries=GEOMETRIES, topk: int = TOPK, seed: int = 0) -> fl
     return worst
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """The driver's ``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+# the CUDA driver API's CUgraphNodeType values other than a kernel's (0)
+GRAPH_NODE_TYPES = {1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 8: "ext_semas_signal",
+                    9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+                    13: "conditional"}
+
+
+def captured_work(fn) -> list[str]:
+    """What ``fn()`` puts on the current stream, read from a CUDA graph
+    capture of it: each kernel node's (mangled) name, and ``<memset>``,
+    ``<memcpy>`` ... for the nodes that are no kernel.  Unlike
+    ``torch.profiler``, which drops device events on some H100 machines, a
+    capture records every launch; ``fn`` must have run once before, so that
+    its first-call set-up (builds, attributes) is not captured."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(what: str, err: int) -> None:
+        if err:
+            raise AssertionError(f"captured_work: {what} returned CUresult {err}")
+
+    def name_of(node) -> str:
+        params = _KernelNodeParams()
+        check("cuGraphKernelNodeGetParams_v2", cuda.cuGraphKernelNodeGetParams_v2(
+            node, ctypes.byref(params)))
+        name = ctypes.c_char_p()
+        # the runtime launches a CUkernel cast to a CUfunction where it
+        # loads lazily; either names it
+        for get, handle in (("cuFuncGetName", params.func), ("cuKernelGetName", params.func),
+                            ("cuKernelGetName", params.kern)):
+            if handle and getattr(cuda, get)(ctypes.byref(name), ctypes.c_void_p(handle)) == 0:
+                return name.value.decode()
+        raise AssertionError("captured_work: the CUDA driver names no function of a kernel node")
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+        check("cuGraphGetNodes", cuda.cuGraphGetNodes(raw, None, ctypes.byref(count)))
+        nodes = (ctypes.c_void_p * count.value)()
+        check("cuGraphGetNodes", cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count)))
+        work = []
+        for node in nodes:
+            kind = ctypes.c_int()
+            check("cuGraphNodeGetType", cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                                                ctypes.byref(kind)))
+            work.append(name_of(ctypes.c_void_p(node)) if kind.value == 0
+                        else f"<{GRAPH_NODE_TYPES.get(kind.value, kind.value)}>")
+        return work
+    finally:
+        graph.reset()
+
+
 def fused_one_launch() -> None:
     """One postprocess_fused call issues exactly one device kernel (no
-    upcast, no keep, no memset or copy): torch.profiler over one call on a
-    bf16 Darknet-416 head, anchors already on the card, at detect's point
-    (batch 8, topk 100) and at eval's (batch 16, topk 300)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    upcast, no keep, no memset or copy): a CUDA graph capture of one call
+    on a bf16 Darknet-416 head, anchors already on the card, at detect's
+    point (batch 8, topk 100) and at eval's (batch 16, topk 300)."""
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
 
     rng = np.random.default_rng(12)
@@ -379,14 +465,10 @@ def fused_one_launch() -> None:
         raw = torch.from_numpy(seeded_raw(rng, b, 13, 13, 5, 20, "bench")).to("cuda",
                                                                               torch.bfloat16)
         postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, topk)
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, topk)
-            torch.cuda.synchronize()
-        device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device = captured_work(lambda: postprocess_fused(raw, anchors, THRESHOLD, OVERLAP, topk))
         if len(device) != 1 or "postprocess_fused" not in device[0]:
-            raise AssertionError(f"postprocess_fused: one call (batch {b}, topk {topk}) ran "
-                                 f"{len(device)} device activities {device}; expected the "
+            raise AssertionError(f"postprocess_fused: one call (batch {b}, topk {topk}) put "
+                                 f"{len(device)} nodes {device} on the stream; expected the "
                                  "fused kernel alone")
         log(f"[kernel] fused: one call at batch {b}, topk {topk} issues one device kernel "
             f"({device[0][:60]})")
@@ -1016,7 +1098,6 @@ def host_split(card: str) -> dict:
     ``torch.cuda.Stream`` lookup are the parts the first launch path paid on
     every call; the current device index, the raw stream handle and
     ``new_empty`` are what ``_build.Kernel`` and the wrappers use instead."""
-    import ctypes
 
     import torch.nn.functional as F
 
@@ -1150,11 +1231,11 @@ def profile(card: str, path: str) -> None:
 
 
 def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) -> None:
-    """torch.profiler over one batch-8 forward: every pool and reorg kernel
-    the path launches must be its fused (bias) instantiation, and the
-    forward must call no ``aten::cat``; prints the device kernels per
+    """One batch-8 forward: every pool and reorg kernel the path launches
+    must be its fused (bias) instantiation (a CUDA graph capture of the
+    forward, ``captured_work``), and the forward must call no ``aten::cat``
+    (``torch.profiler``'s host-side ops); prints the device kernels per
     forward with the path's kernels and without ``drop``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     x = seeded_images(4, 8)
@@ -1162,27 +1243,26 @@ def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) 
     for label, m in (("with", model), ("without", without(model, drop))):
         with torch.inference_mode():
             m.apply_folded(folded, x)
-            torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            device = captured_work(lambda: m.apply_folded(folded, x))
+            with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
                 m.apply_folded(folded, x)
-                torch.cuda.synchronize()
-        events = prof.events()
-        device = [e.name for e in events if e.device_type == DeviceType.CUDA]
-        counts[label] = len(device)
+        others = [n for n in device if n.startswith("<")]
+        counts[label] = f"{len(device) - len(others)} kernels" + (
+            f" + {len(others)} {'/'.join(sorted(set(others)))} nodes" if others else "")
         if label == "without":
             break
         # the template's bool kBias: "true" demangled, "Lb1E" mangled
         fused = lambda n: "true" in n or "Lb1E" in n
         got = {"maxpool2x2": [n for n in device if "maxpool2x2_kernel" in n],
                "reorg_s2d": [n for n in device if "reorg_s2d_kernel" in n]}
-        cats = sum(e.name == "aten::cat" for e in events)
+        cats = sum(e.name == "aten::cat" for e in prof.events())
         if (len(got["maxpool2x2"]) != pools or len(got["reorg_s2d"]) != reorgs
                 or not all(fused(n) for names in got.values() for n in names) or cats):
             raise AssertionError(f"{what}: one forward ran {got} and {cats} aten::cat; expected "
                                  f"{pools} fused pools, {reorgs} fused reorgs and no cat")
     log(f"[{what}] one batch-8 forward: {pools} maxpool2x2 and {reorgs} reorg_s2d launches, "
-        f"all with the conv's epilogue, no aten::cat; {counts['with']} device kernels per "
-        f"forward ({counts['without']} without {' '.join(sorted(drop))})")
+        f"all with the conv's epilogue, no aten::cat; {counts['with']} per forward in a "
+        f"graph capture ({counts['without']} without {' '.join(sorted(drop))})")
 
 
 def cuda_tests() -> None:
@@ -1530,16 +1610,23 @@ def train_times(images, card: str) -> dict:
 
 def train_profile(step, carry, batch, draws, card: str) -> dict:
     """torch.profiler over 3 steps at batch 16: device time by kernel class
-    and the top kernels."""
+    and the top kernels.  The profiler drops device events on some H100
+    machines (it kept none of one call's in one run): where it recorded none
+    in PROFILE_TRIES tries, the profile is "not measured" (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_ms(step, carry, batch, draws, 3)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels) / 3
-    if device_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time for the train step")
+    for _ in range(PROFILE_TRIES):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_ms(step, carry, batch, draws, 3)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kernels) / 3
+        if device_us > 0:
+            break
+    else:
+        log(f"[profile] torch.profiler recorded no device time for the train step in "
+            f"{PROFILE_TRIES} tries: not measured")
+        return {"device_ms": None, "launches": None, "shares": None}
     shares = {}
     for e in kernels:
         name = e.key.lower()
@@ -1824,10 +1911,12 @@ def fused_eval_times(card: str, trained) -> dict:
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
     from yolojax_torch.ops.postprocess import postprocess_raw
 
-    def device_us(fn, calls: int = 20) -> tuple[float, int]:
+    def device_us(fn, calls: int = 20) -> tuple[float, str]:
         """Median device µs of the kernels the profiler recorded over ``calls``
-        calls, and their count: late in a long process it drops some device
-        events (seen on the H100), so a sum over the calls would read low."""
+        calls, and what it is: late in a long process the profiler drops some
+        device events (seen on the H100), so a sum over the calls would read
+        low; where it kept none (seen once on the H100), CUDA events around the
+        calls instead, whose mean holds the launch gaps too."""
         fn()
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1836,9 +1925,17 @@ def fused_eval_times(card: str, trained) -> dict:
             torch.cuda.synchronize()
         times = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA and "postprocess_fused" in e.name]
-        if not times:
-            raise AssertionError(f"torch.profiler recorded none of {calls} fused kernels")
-        return float(np.median(times)), len(times)
+        if times:
+            return float(np.median(times)), (f"median of the {len(times)} of {calls} calls "
+                                             "the profiler recorded")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / calls, (f"CUDA events, mean of {calls} calls: "
+                                                       "the profiler recorded none")
 
     rng = np.random.default_rng(70)
     cases = []
@@ -1860,12 +1957,12 @@ def fused_eval_times(card: str, trained) -> dict:
         picks = int(res.keep.sum())
         bound = Bound().add(nbytes(raw, anchors, *res),
                             {"f32": raw.shape[0] * n * (3 * c + 20) + picks * n * 16})
-        dev, recorded = device_us(kernel)
+        dev, how = device_us(kernel)
         out[what] = {"ms": t_kernel, "plain_ms": t_plain, "device_us": dev,
                      "bound_ms": bound.total, "bound_by": bound.by, "picks": picks}
         log(f"[time] {card} | fused at eval's point, {what} bf16, topk {EVAL_TOPK}: kernel "
-            f"{t_kernel:.4f} ms one-call, {dev:.1f} us device (median of the {recorded} of 20 "
-            f"calls the profiler recorded); plain {t_plain:.4f} ms; bound {bound.total:.5f} ms "
+            f"{t_kernel:.4f} ms one-call, {dev:.1f} us device ({how}); plain {t_plain:.4f} "
+            f"ms; bound {bound.total:.5f} ms "
             f"by {bound.by}; {picks} picks")
     return out
 
@@ -1943,6 +2040,411 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
     return {k: launches[k] + nms_launches[k] for k in launches}, result
 
 
+# -- the deploy and tools phase ---------------------------------------------------
+
+DEPLOY_DIR = ROOT / "build" / "chip_smoke_deploy"   # git-ignored: programs, pruned checkpoints
+DEPLOY_BATCHES = 3
+# the four paths the export takes, with the custom-op calls each program holds at 416
+EXPORT_PATHS = {"darknet": (darknet_config, {}),
+                "mobilenet": (mobilenet_config, {"dwconv3x3": 4, "dwsep": 7}),
+                "darknet-s2d": (s2d_config, {"maxpool2x2": 3, "reorg_s2d": 1}),
+                "tiny": (tiny_config, {"maxpool2x2": 2})}
+BASELINE1_ATOL = 1e-4       # BASELINE config 1, CPU against the card in f32: boxes
+RF_RTOL = 1e-3              # the effective receptive field, card against CPU in f32
+PRUNE_RATIO = 0.3
+# replays saved programs in a fresh process; argv[1] is JSON {path: [program, inputs]}
+REPLAY = """
+import json, sys, torch
+import yolojax_torch.kernels.ops
+from chip_smoke import bits, launch_counters
+out = {}
+for path, (program, io) in json.loads(sys.argv[1]).items():
+    x, want = torch.load(io)
+    replay = torch.export.load(program).module()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got = replay(x)
+    torch.cuda.synchronize()
+    out[path] = {"launches": {k: fn.launches for k, fn in counters.items()},
+                 "same_bits": bool(torch.equal(bits(got), bits(want))),
+                 "max_abs_err": float((got - want).abs().max())}
+print(json.dumps(out))
+"""
+
+
+def deploy_config(*mods):
+    """config.ini with the train phase's root and model name (its checkpoints)."""
+    from yolojax_torch.config import load_config
+
+    return load_config(None, [f"config/root={TRAIN_ROOT}", "model/name=smoke", *mods])
+
+
+def zero_counters() -> dict:
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_counters(counters: dict) -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def same_host_picks(got, want, what: str) -> int:
+    """The host path's PostProcessed (CPU) against the fused kernel's (card):
+    ``keep`` and, where kept, conf and corners bit for bit; returns the picks.
+    On a difference, print the first (image, class) that differs with both
+    pick lists and the IoU of the first differing pick with the picks before
+    it, then raise."""
+    from yolojax_torch.ops.iou import iou_pairwise
+
+    want = type(want)(*(t.cpu() for t in want))
+    keep = want.keep
+    fields = ((got.conf, want.conf), (got.yx_min, want.yx_min), (got.yx_max, want.yx_max))
+
+    def same(idx):
+        k = keep[idx]
+        return torch.equal(got.keep[idx], k) and all(
+            torch.equal(bits(g[idx][k]), bits(w[idx][k])) for g, w in fields)
+
+    if same(...):
+        return int(keep.sum())
+    b, c = next(bc for bc in np.ndindex(*keep.shape[:2]) if not same(bc))
+    k = int(torch.nonzero((got.keep[b, c] != keep[b, c]) | (got.conf[b, c] != want.conf[b, c])
+                          | (got.yx_min[b, c] != want.yx_min[b, c]).any(-1))[0])
+    lists = []
+    for out in (got, want):
+        boxes = torch.cat([out.yx_min[b, c, :k + 1], out.yx_max[b, c, :k + 1]], -1)
+        iou = iou_pairwise(boxes[:k, :2], boxes[:k, 2:], boxes[k:, :2], boxes[k:, 2:])
+        lists.append(f"keep {out.keep[b, c, :k + 1].tolist()} conf "
+                     f"{out.conf[b, c, :k + 1].tolist()} boxes {boxes.tolist()}; IoU of slot "
+                     f"{k} with the picks before it {iou.tolist()}")
+    log(f"[deploy] {what}: image {b} class {c} differs first at slot {k}: host {lists[0]}; "
+        f"fused {lists[1]}")
+    raise AssertionError(f"{what}: the host path's picks differ from the fused kernel's")
+
+
+def host_detect(final: str) -> tuple[dict, dict]:
+    """Build the native NMS; on the train phase's checkpoint, ``detect_fn_host``
+    (forward on the card, NMS on the host) against ``detect_fn`` (the fused
+    kernel) at [detect]'s point and at threshold 0.005; then BASELINE config
+    1: ``detect_image`` with the model and image on the CPU in f32 (the host
+    path) against the card's.  Returns (launches, numbers for the line)."""
+    from yolojax_torch import native
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.detect import detect_image
+    from yolojax_torch.models.inference import Inference
+
+    t0 = time.perf_counter()
+    lib = native.build()          # raises with g++'s message: no quiet fallback
+    if not native.native_nms_available():
+        raise AssertionError(f"deploy: {lib} built but does not load")
+    log(f"[deploy] native NMS {lib.name} (g++ {' '.join(native.GXX_FLAGS)}; built by the "
+        f"cuda tests' child process or here) ready in {time.perf_counter() - t0:.2f} s")
+    config = deploy_config()
+    _, _, model = build(config)
+    params, state, meta = load_weights_auto(config, model, final, device="cuda")
+    inference = Inference(model)
+    folded = inference.fold(params, state)
+    overlap, topk = config.getfloat("detect", "overlap"), config.getint("detect", "topk")
+    batches = [seeded_images(70 + i, 8) for i in range(DEPLOY_BATCHES)]
+    picks = {}
+    counters = zero_counters()
+    for threshold in (config.getfloat("detect", "threshold"), THRESHOLD):
+        fused = inference.detect_fn(threshold, overlap, topk)
+        host = inference.detect_fn_host(threshold, overlap, topk)
+        picks[str(threshold)] = sum(same_host_picks(host(folded, x), fused(folded, x),
+                                                    f"threshold {threshold} batch {i}")
+                                    for i, x in enumerate(batches))
+    launches = read_counters(counters)
+    want = per_batch(postprocess_fused=2 * len(batches))
+    if launches != want:
+        raise AssertionError(f"deploy: detect_fn and detect_fn_host launched {launches}, "
+                             f"expected {want}")
+    log(f"[deploy] detect_fn_host (the {meta.get('step')}-step Darknet-19 checkpoint, bf16, "
+        f"forward on the card, native NMS on the host) equals detect_fn (the fused kernel) on "
+        f"{len(batches)} batches of 8: keep, pick order, conf and corners bit for bit; picks "
+        f"by threshold {picks}; launches {launches}")
+
+    # BASELINE config 1.  The 14-step head scores every box under [detect]'s
+    # 0.4, so the threshold is set inside the widest gap between the 20th and
+    # 60th scores the card detects at 0.005: no score lies near it
+    image = synth_records()[0]["synth/000"]        # a train image of the checkpoint
+    cfg32 = deploy_config("model/dtype=float32", f"detect/threshold={THRESHOLD}")
+    _, _, model32 = build(cfg32)
+    p, s, _ = load_weights_auto(cfg32, model32, final, device="cuda")
+    confs = np.sort(detect_image(cfg32, model32, p, s, image, SIZE)[3])[::-1]
+    k = 20 + int(np.argmax(confs[19:59] - confs[20:60]))
+    threshold = float((confs[k - 1] + confs[k]) / 2)
+    cfg32.set("detect", "threshold", repr(threshold))
+    out = {}
+    for device in ("cuda", "cpu"):
+        p, s, _ = load_weights_auto(cfg32, model32, final, device=device)
+        out[device] = detect_image(cfg32, model32, p, s, image, SIZE)
+    cpu_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        detect_image(cfg32, model32, p, s, image, SIZE)
+        cpu_ms.append((time.perf_counter() - t) * 1e3)
+    (cmin, cmax, ccls, cconf), (gmin, gmax, gcls, gconf) = out["cpu"], out["cuda"]
+    if not (len(ccls) and np.array_equal(ccls, gcls)):
+        raise AssertionError(f"BASELINE config 1: classes differ, CPU {ccls.tolist()} card "
+                             f"{gcls.tolist()}")
+    box_err = float(max(np.abs(cmin - gmin).max(), np.abs(cmax - gmax).max()))
+    if box_err > BASELINE1_ATOL:
+        raise AssertionError(f"BASELINE config 1: boxes {box_err:.3g} apart (> {BASELINE1_ATOL})")
+    conf_err = float(np.abs(cconf - gconf).max())
+    log(f"[deploy] BASELINE config 1 (Darknet-19 at {SIZE}, f32, one {image.shape[0]}x"
+        f"{image.shape[1]} image, forward and native NMS on the CPU, threshold "
+        f"{threshold:.6g} between scores {confs[k - 1]:.6g} and {confs[k]:.6g}): {len(ccls)} "
+        f"detections, the card's classes, boxes within {box_err:.3g}, conf within "
+        f"{conf_err:.3g}; CPU detect_image {np.median(cpu_ms):.1f} ms (median of 3, BN fold "
+        f"included)")
+    return launches, {"host_picks": picks, "baseline1_threshold": threshold,
+                      "baseline1_detections": len(ccls),
+                      "baseline1_box_err": box_err, "baseline1_conf_err": conf_err,
+                      "baseline1_cpu_ms": float(np.median(cpu_ms))}
+
+
+def export_paths() -> tuple[dict, dict]:
+    """Each of the four paths at 416, bf16, B=8, seeded: ``export_program``,
+    ``torch.export.save``, the custom-op calls counted in the graph, then
+    one child process loads every program (after importing
+    ``kernels/ops.py``) and replays it on a seeded batch: bit-identical to the
+    eager forward + ``decode_flat`` here, with the launches the path routes.
+    Then ``--format onnx`` of Darknet's card weights: ``check_model`` passes
+    and the blob is the CPU export's of the same weights, byte for byte.
+    Returns (the replays' launches, numbers for the line)."""
+    import os
+
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.export import export_program
+    from yolojax_torch.kernels.ops import op_counts
+    from yolojax_torch.ops.decode import decode_flat
+    from yolojax_torch.tools.onnx_export import check_model, export_onnx
+
+    DEPLOY_DIR.mkdir(parents=True, exist_ok=True)
+    jobs, expect, info = {}, {}, {}
+    for name, (config_fn, ops) in EXPORT_PATHS.items():
+        t0 = time.perf_counter()
+        config = config_fn()
+        _, anchors, model = build(config)
+        params, state, _ = load_weights_auto(config, model, rng_seed=0, device="cuda")
+        folded = model.fold(params, state)
+        program = export_program(model, folded, anchors, SIZE, batch=8)
+        if op_counts(program.graph) != ops:
+            raise AssertionError(f"export {name}: the graph calls {op_counts(program.graph)}, "
+                                 f"expected {ops}")
+        path = DEPLOY_DIR / f"{name}.pt2"
+        torch.export.save(program, path)
+        x = seeded_images(80, 8)
+        with torch.inference_mode():
+            want = decode_flat(model.apply_folded(folded, x), torch.as_tensor(anchors,
+                                                                              device="cuda"))
+        torch.save((x, want), DEPLOY_DIR / f"{name}.io.pt")
+        jobs[name] = [str(path), str(DEPLOY_DIR / f"{name}.io.pt")]
+        expect[name] = {k: ops.get(k, 0) for k in KERNELS}
+        info[name] = {"ops": ops, "export_s": time.perf_counter() - t0,
+                      "mb": os.path.getsize(path) / 2**20}
+        log(f"[deploy] export {name}: {type(model).__name__}, kernels {sorted(model.pallas)}, "
+            f"B=8 at {SIZE}: custom-op calls {ops or 'none'}; {info[name]['mb']:.1f} MiB "
+            f"saved in {info[name]['export_s']:.1f} s")
+        if name == "darknet":
+            folded_cpu = {k: {n: v.cpu() for n, v in lp.items()} for k, lp in folded.items()}
+            blob = export_onnx(model, folded, anchors, SIZE, batch=8)
+            summary = check_model(blob)
+            if blob != export_onnx(model, folded_cpu, anchors, SIZE, batch=8):
+                raise AssertionError("export onnx: the card's weights give another blob than "
+                                     "the CPU's")
+            info["onnx"] = {"bytes": len(blob), "nodes": summary["nodes"]}
+            log(f"[deploy] export --format onnx of Darknet-19's card weights: check_model "
+                f"passes ({summary['nodes']} nodes, {summary['initializers']} initializers), "
+                f"{len(blob)} bytes, equal to the CPU export's")
+        del program, model, folded, params, state
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", REPLAY, json.dumps(jobs)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600, check=False)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"export: the replay process exited {proc.returncode}")
+    replays = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = per_batch()
+    for name, got in replays.items():
+        if got["launches"] != expect[name] or not got["same_bits"]:
+            raise AssertionError(f"export {name}: the replay launched {got['launches']} "
+                                 f"(expected {expect[name]}), bit-identical "
+                                 f"{got['same_bits']}, max abs err {got['max_abs_err']:.3g}")
+        launches = {k: launches[k] + got["launches"][k] for k in KERNELS}
+        info[name]["replay_launches"] = {k: v for k, v in got["launches"].items() if v}
+    log(f"[deploy] a fresh process loaded the four programs (import "
+        f"yolojax_torch.kernels.ops, torch.export.load) and replayed each bit-identical to "
+        f"the eager forward + decode_flat, launching {launches} in all "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches, info
+
+
+def prune_paths(final: str) -> tuple[dict, dict]:
+    """``cli/prune.py`` at ratio 0.3 on the train phase's checkpoint, the
+    model rebuilt with ``model/channels``, ``detect_fn`` on the card; then a
+    seeded Darknet-s2d with γ spread over U(0, 1.5), pruned and run with and
+    without ``pool reorg`` in f32 (TF32 off): the raw heads bit-identical and
+    the launches the routing gives at the pruned widths.  Returns
+    (launches, numbers for the line)."""
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.prune import main as prune_main
+    from yolojax_torch.models.inference import Inference
+    from yolojax_torch.tools.prune import prune, save_channels
+
+    out = DEPLOY_DIR / "pruned"
+    argv = ["-m", f"config/root={TRAIN_ROOT}", "model/name=smoke", "-f", final, "--ratio",
+            str(PRUNE_RATIO), "-o", str(out)]
+    if prune_main(argv) != 0:
+        raise AssertionError("prune: the CLI failed")
+    step = TRAIN_STEPS + TRAIN_RESUME_STEPS
+    config = deploy_config(f"model/channels={out / 'channels.json'}")
+    _, _, model = build(config)
+    params, state, meta = load_weights_auto(config, model, str(out / f"{step}.npz"),
+                                            device="cuda")
+    _, _, full = build(deploy_config())
+    count = lambda m: sum(d.out_ch * d.in_ch // d.groups * d.ksize ** 2 for d in m.layer_defs)
+    inference = Inference(model)
+    folded = inference.fold(params, state)
+    run = inference.detect_fn(THRESHOLD, OVERLAP, TOPK)
+    counters = zero_counters()
+    outs = [run(folded, seeded_images(90 + i, 8)) for i in range(DEPLOY_BATCHES)]
+    launches = read_counters(counters)
+    if launches != per_batch(postprocess_fused=DEPLOY_BATCHES) or not all(
+            bool(torch.isfinite(t).all()) for o in outs for t in (o.yx_min, o.yx_max, o.conf)):
+        raise AssertionError(f"prune: the pruned model's detect launched {launches}")
+    result = {"ratio": PRUNE_RATIO, "weights_before": count(full), "weights_after": count(model),
+              "channels": json.loads((out / "channels.json").read_text()),
+              "step": meta.get("step")}
+    log(f"[deploy] cli.prune --ratio {PRUNE_RATIO} on {Path(final).name}: conv weights "
+        f"{result['weights_before']} -> {result['weights_after']}; rebuilt with model/channels, "
+        f"detect_fn on {DEPLOY_BATCHES} batches of 8: finite, launches {launches}")
+
+    # a seeded Darknet-s2d with spread γ: the routed forward at the pruned widths
+    config = s2d_config(dtype="float32")
+    _, _, s2d = build(config)
+    params, state, _ = load_weights_auto(config, s2d, rng_seed=3, device="cuda")
+    gen = torch.Generator().manual_seed(4)
+    for lp in params.values():
+        if "gamma" in lp:
+            lp["gamma"] = (torch.rand(lp["gamma"].shape, generator=gen) * 1.5).cuda()
+    p2, s2, channels = prune(s2d, params, state, PRUNE_RATIO)
+    save_channels(str(DEPLOY_DIR / "s2d_channels.json"), channels)
+    pruned_cfg = s2d_config(dtype="float32")
+    pruned_cfg.set("model", "channels", str(DEPLOY_DIR / "s2d_channels.json"))
+    _, _, pruned = build(pruned_cfg)
+    folded = pruned.fold(p2, s2)
+    pools = sum(channels[name] % 128 == 0 for name in ("c5", "c8", "c13"))
+    expect = per_batch(maxpool2x2=pools, reorg_s2d=1)
+    x = seeded_images(91, 8)
+    counters = zero_counters()
+    with torch.inference_mode():
+        got = pruned.apply_folded(folded, x)
+    s2d_launches = read_counters(counters)
+    with torch.inference_mode():
+        want = without(pruned, {"pool", "reorg"}).apply_folded(folded, x)
+    if s2d_launches != expect:
+        raise AssertionError(f"prune s2d: launched {s2d_launches}, the routing gives {expect}")
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"prune s2d: the routed raw head differs from the plain one "
+                             f"(max abs diff {(got - want).abs().max().item():.4g})")
+    result["s2d_channels"] = {k: channels[k] for k in ("c5", "c8", "c13", "c21")}
+    log(f"[deploy] a pruned Darknet-s2d (γ ~ U(0, 1.5), ratio {PRUNE_RATIO}; c5, c8, c13, c21 "
+        f"at {result['s2d_channels']}) with pool reorg: launches {s2d_launches} as the routing "
+        f"gives (a pool takes the kernel where its channels are a multiple of 128); f32 raw "
+        f"head bit-identical to the forward without pool reorg")
+    return {k: launches[k] + s2d_launches[k] for k in KERNELS}, result
+
+
+def tools_paths() -> dict:
+    """receptive_field of Darknet-19 at 416 in f32 on the card against the
+    CPU; plan_to_dot of the four paths; demo_graph's export dump of
+    Darknet-s2d; demo_data's samples from the train cache; entry() on the
+    card.  Returns numbers for the line."""
+    from yolojax_torch.cli.common import build
+    from yolojax_torch.cli.demo_data import samples
+    from yolojax_torch.cli.demo_graph import graph_dump, plan_to_dot
+    from yolojax_torch.cli.receptive_field import receptive_field
+    from yolojax_torch.entry import entry
+
+    result = {}
+    config = darknet_config()
+    config.set("model", "dtype", "float32")
+    _, _, model = build(config)
+    rf = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        params, state = model.init(torch.Generator().manual_seed(0), device)
+        rf[device] = receptive_field(model, params, state, SIZE)[1:] + (time.perf_counter() - t0,)
+    (support, eff, card_s), (cpu_support, cpu_eff, cpu_s) = rf["cuda"], rf["cpu"]
+    if support != cpu_support or abs(eff - cpu_eff) > RF_RTOL * abs(cpu_eff):
+        raise AssertionError(f"receptive_field: card {support} {eff} vs CPU {cpu_support} "
+                             f"{cpu_eff}")
+    result["receptive_field"] = {"support": support, "effective": eff, "cpu_effective": cpu_eff}
+    log(f"[deploy] receptive_field of Darknet-19 at {SIZE} (f32): support {support}, effective "
+        f"RF {eff:.4f} px on the card ({card_s:.1f} s), {cpu_eff:.4f} on the CPU ({cpu_s:.1f} "
+        f"s): the same support, {abs(eff - cpu_eff) / abs(cpu_eff):.2g} apart")
+
+    dots = {}
+    for name, (config_fn, _) in EXPORT_PATHS.items():
+        dot = plan_to_dot(build(config_fn())[2])
+        if not (dot.startswith("digraph yolojax {") and dot.endswith("}")):
+            raise AssertionError(f"plan_to_dot {name}: malformed")
+        dots[name] = dot.count(" -> ")
+    text, code, program = graph_dump(build(s2d_config())[2], SIZE, "cuda")
+    calls = {k: text.count(f"yolojax_torch.{k}.default(") for k in ("maxpool2x2", "reorg_s2d")}
+    if calls != {"maxpool2x2": 3, "reorg_s2d": 1} or "def forward" not in code:
+        raise AssertionError(f"demo_graph: the Darknet-s2d dump calls {calls}")
+    result["plan_edges"], result["graph_lines"] = dots, text.count("\n")
+    log(f"[deploy] plan_to_dot edges {dots}; demo_graph's Darknet-s2d program: "
+        f"{result['graph_lines']} lines, custom-op calls {calls}, fx code "
+        f"{code.count(chr(10))} lines")
+
+    _, train_config = train_args()
+    images_by_path, _ = synth_records()
+    images, boxes = samples(train_config, 8, SIZE, seed=0, device="cuda",
+                            imread=images_by_path.__getitem__)
+    if images.shape != (8, SIZE, SIZE, 3) or not np.isfinite(images).all() or len(boxes) != 8:
+        raise AssertionError(f"demo_data: images {images.shape}, {len(boxes)} box sets")
+    for ymin, ymax, cls in boxes:
+        if not (len(cls) and (ymin >= 0).all() and (ymax <= 1).all() and (ymin <= ymax).all()):
+            raise AssertionError("demo_data: a sample's boxes leave the image")
+    result["demo_data_boxes"] = [len(b[2]) for b in boxes]
+    log(f"[deploy] demo_data samples from the train cache: 8 images {images.shape[1:]}, boxes "
+        f"per image {result['demo_data_boxes']}, all inside the image")
+
+    fn, (folded, images) = entry()
+    out = fn(folded, images)
+    if not all(t.is_cuda for t in out) or not all(bool(torch.isfinite(t).all())
+                                                   for t in out[:3]):
+        raise AssertionError("entry(): outputs not finite or not on cuda")
+    result["entry_picks"] = int(out.keep.sum())
+    log(f"[deploy] entry(): Darknet-19 at 416, bf16, batch {images.shape[0]} on "
+        f"{images.device}: outputs finite, {result['entry_picks']} picks")
+    return result
+
+
+def deploy_phase(card: str, final: str) -> tuple[dict, dict]:
+    """Phase 12: host detect and BASELINE config 1, export and replay, prune,
+    the tools.  Returns (launches, the deploy line)."""
+    t0 = time.perf_counter()
+    host_launches, host = host_detect(final)
+    export_launches, exported = export_paths()
+    prune_launches, pruned = prune_paths(final)
+    tools = tools_paths()
+    result = {"card": card, **host, "export": exported, "prune": pruned, **tools,
+              "seconds": time.perf_counter() - t0}
+    log(f"[deploy] the deploy phase took {result['seconds']:.1f} s")
+    launches = {k: host_launches[k] + export_launches[k] + prune_launches[k] for k in KERNELS}
+    return launches, result
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--profile"] and len(args) <= 2:
@@ -1989,6 +2491,7 @@ def main() -> None:
     layout_t = layout_times(card)
     train_launches, train_result, final = train_phase(card)
     eval_launches, eval_result = eval_phase(card, final)
+    deploy_launches, deploy_result = deploy_phase(card, final)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each); ms,
@@ -1998,7 +2501,7 @@ def main() -> None:
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
-             eval_launches)
+             eval_launches, deploy_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -2015,6 +2518,7 @@ def main() -> None:
                "reorg_s2d": ("reorg_s2d.cu", "yolojax/kernels/reorg.py:38")}
     print(json.dumps({"train": train_result}), flush=True)
     print(json.dumps({"eval": eval_result}), flush=True)
+    print(json.dumps({"deploy": deploy_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

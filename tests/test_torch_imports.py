@@ -46,7 +46,13 @@ def test_the_walk_sees_every_module():
             "yolojax_torch/data/voc.py", "yolojax_torch/data/coco.py",
             "yolojax_torch/data/synth.py", "yolojax_torch/tools/darknet.py",
             "yolojax_torch/tools/kmeans.py", "tests/test_torch_cuda_kernels.py",
-            "tests/test_torch_cuda_nms_pool_reorg.py", "tests/test_torch_cuda_eval.py"} <= names
+            "tests/test_torch_cuda_nms_pool_reorg.py", "tests/test_torch_cuda_eval.py",
+            "yolojax_torch/native/__init__.py", "yolojax_torch/entry.py",
+            "yolojax_torch/kernels/ops.py", "yolojax_torch/cli/export.py",
+            "yolojax_torch/cli/prune.py", "yolojax_torch/cli/demo_data.py",
+            "yolojax_torch/cli/demo_graph.py", "yolojax_torch/cli/receptive_field.py",
+            "yolojax_torch/tools/onnx_export.py", "yolojax_torch/tools/prune.py",
+            "tests/test_torch_cuda_deploy.py"} <= names
     assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
     # the check itself: a forbidden import is found, the port's own is not
     assert _forbidden("yolojax.config") and _forbidden("jax.numpy") and _forbidden("jax")

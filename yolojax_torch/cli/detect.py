@@ -1,11 +1,18 @@
-"""``detect`` command of the port: single-image detection (counterpart of
-``yolojax/cli/detect.py``; camera and video input are not ported yet).
+"""``detect`` command of the port: single image, video file or camera
+detection (counterpart of ``yolojax/cli/detect.py``; BASELINE config 1).
 
-Pipeline: read image → centered gray canvas → ``[transform] resize`` to the
-input size → folded forward + fused decode/NMS → invert the resize → draw
-class/conf-labelled boxes.
+Pipeline: read frame → centered gray canvas → ``[transform] resize`` to the
+input size → folded forward + decode + per-class NMS → invert the resize →
+draw class/conf-labelled boxes.  On the card the NMS is the fused
+decode+NMS kernel (``detect_fn``); with the model on the CPU it is the native
+C++ library (``detect_fn_host``) where that builds.
 
     python -m yolojax_torch.cli.detect IMG -c config.ini [--device cuda] [-o out.png]
+    python -m yolojax_torch.cli.detect clip.avi -c config.ini -o out.avi   # video file
+    python -m yolojax_torch.cli.detect 0 -c config.ini [--show]            # camera 0
+
+cv2 reads and writes the frames and matplotlib shows them (``--show``); each
+is imported only where a path needs it.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 from ..config import get_canvas
 from ..data.transform import resize_from_config
 from ..models.inference import Inference, to_host
+from ..native import native_nms_available
 from ..utils.visualize import draw_boxes
 from . import make_parser, setup
 from .common import build, load_weights_auto
@@ -45,14 +53,22 @@ def _to_canvas(img: np.ndarray, canvas: int):
 
 def detect_image(config, model, params, state, image: np.ndarray, size: int):
     """Run detection on one RGB uint8 image on the device ``params`` live on →
-    (yx_min, yx_max, cls, conf) as numpy, normalized to the input image."""
+    (yx_min, yx_max, cls, conf) as numpy, normalized to the input image.  On
+    the CPU the NMS runs in the native library where it builds
+    (``detect_fn_host``), as the reference's CPU backend does; elsewhere, and
+    without the library, ``detect_fn``."""
     threshold = config.getfloat("detect", "threshold", fallback=0.4)
     overlap = config.getfloat("detect", "overlap", fallback=0.45)
     topk = config.getint("detect", "topk", fallback=100)
     device = next(iter(params.values()))["w"].device
     inference = Inference(model)
     folded = inference.fold(params, state)
-    run = inference.detect_fn(threshold, overlap, topk)
+    if device.type == "cpu" and native_nms_available():
+        run = inference.detect_fn_host(threshold, overlap, topk)
+        _LOG.info("detect path: forward on the CPU, native NMS (detect_fn_host)")
+    else:
+        run = inference.detect_fn(threshold, overlap, topk)
+        _LOG.info("detect path: detect_fn on %s", device)
 
     canvas, hw = _to_canvas(image, get_canvas(config))
     resize = resize_from_config(config)
@@ -80,14 +96,16 @@ def detect_image(config, model, params, state, image: np.ndarray, size: int):
 
 
 def main(argv=None):
-    parser = make_parser("detect objects in an image")
-    parser.add_argument("input", help="image path")
+    parser = make_parser("detect objects in an image, a video file or a camera stream")
+    parser.add_argument("input", help="image path, video path, or an integer camera index")
     parser.add_argument("-f", "--file", default=None,
                         help="checkpoint .npz or darknet .weights "
                              "(default: latest in the model dir)")
     parser.add_argument("--size", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
-    parser.add_argument("-o", "--output", default=None, help="output image path")
+    parser.add_argument("-o", "--output", default=None,
+                        help="output image path (a video for video or camera input)")
+    parser.add_argument("--show", action="store_true", help="matplotlib display")
     args = parser.parse_args(argv)
     config = setup(args)
 
@@ -98,20 +116,60 @@ def main(argv=None):
 
     import cv2
 
-    img = cv2.imread(args.input, cv2.IMREAD_COLOR)
-    if img is None:
-        raise SystemExit(f"cannot read {args.input} as an image "
-                         "(camera and video input are not ported yet)")
-    rgb = img[:, :, ::-1]
-    ymin, ymax, cls, conf = detect_image(config, model, params, state, rgb, size)
-    tag = os.path.basename(args.input)
-    for i in range(len(cls)):
-        _LOG.info("%s: %s %.2f @ %s %s", tag, category[cls[i]], conf[i],
-                  ymin[i].round(3), ymax[i].round(3))
-    if args.output:
-        drawn = draw_boxes(rgb, ymin, ymax, cls, conf, category)
-        cv2.imwrite(args.output, drawn[:, :, ::-1])
-        _LOG.info("wrote %s", args.output)
+    def handle(frame_rgb, tag: str, write: bool = True):
+        ymin, ymax, cls, conf = detect_image(config, model, params, state, frame_rgb, size)
+        for i in range(len(cls)):
+            _LOG.info("%s: %s %.2f @ %s %s", tag, category[cls[i]], conf[i],
+                      ymin[i].round(3), ymax[i].round(3))
+        drawn = draw_boxes(frame_rgb, ymin, ymax, cls, conf, category)
+        if write and args.output:
+            cv2.imwrite(args.output, drawn[:, :, ::-1])
+            _LOG.info("wrote %s", args.output)
+        if args.show:
+            import matplotlib.pyplot as plt
+
+            plt.imshow(drawn)
+            plt.axis("off")
+            plt.show()
+        return drawn
+
+    def run_capture(cap, tag: str) -> int:
+        """Frame loop shared by the camera and video-file paths; with ``-o``
+        the annotated frames are written back out as one video."""
+        writer, n = None, 0
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                drawn = handle(frame[:, :, ::-1], f"{tag}#{n}", write=False)
+                if args.output:
+                    if writer is None:
+                        fps = cap.get(cv2.CAP_PROP_FPS)
+                        fourcc = "mp4v" if args.output.endswith(".mp4") else "MJPG"
+                        writer = cv2.VideoWriter(
+                            args.output, cv2.VideoWriter_fourcc(*fourcc),
+                            fps if fps and fps > 0 else 25.0,
+                            (drawn.shape[1], drawn.shape[0]))
+                    writer.write(np.ascontiguousarray(drawn[:, :, ::-1]))
+                n += 1
+        finally:
+            cap.release()
+            if writer is not None:
+                writer.release()
+                _LOG.info("wrote %s (%d frames)", args.output, n)
+        return n
+
+    if args.input.isdigit():  # camera loop
+        run_capture(cv2.VideoCapture(int(args.input)), "cam")
+    else:
+        img = cv2.imread(args.input, cv2.IMREAD_COLOR)
+        if img is not None:
+            handle(img[:, :, ::-1], os.path.basename(args.input))
+        else:  # not an image: try it as a video container
+            cap = cv2.VideoCapture(args.input)
+            if not (cap.isOpened() and run_capture(cap, os.path.basename(args.input))):
+                raise SystemExit(f"cannot read {args.input}")
     return 0
 
 

@@ -40,6 +40,9 @@ Where routing goes further than the JAX engine's:
   output into the slot); a conv followed by a routed reorg does the same with
   the reorg kernel, which also writes the ``concat`` right after it.  Both
   compute what the unfused ops compute, bit for bit;
+* while ``torch.export`` traces, the routed layers call the kernels' custom
+  ops (``kernels/ops.py``), which carry the same launches into the exported
+  program; the eager forward calls the wrappers directly;
 * in bf16 a depthwise pair wider than ``dwsep.MAX_BF16_CHANNELS`` does not
   go to the dwsep kernel (the JAX engine's ``engine.py:92-106`` routes it)
   but takes the unpaired route, which computes the same function.
@@ -51,6 +54,7 @@ import torch
 
 from ..kernels import dwconv as dwconv_k
 from ..kernels import dwsep as dwsep_k
+from ..kernels import ops as kernel_ops
 from ..kernels import pool as pool_k
 from ..kernels import reorg as reorg_k
 from ..ops.reorg import reorg
@@ -138,6 +142,15 @@ def _after_conv(plan, i):
     return key, j, plan[j] if j < len(plan) else None
 
 
+def _launchers():
+    """The four forward kernels' entry points (dwconv3x3, dwsep, maxpool2x2,
+    reorg_s2d): their custom ops while ``torch.export`` traces, the wrappers
+    otherwise."""
+    if torch.compiler.is_exporting():
+        return kernel_ops.dwconv3x3, kernel_ops.dwsep, kernel_ops.maxpool2x2, kernel_ops.reorg_s2d
+    return dwconv_k.dwconv3x3, dwsep_k.dwsep, pool_k.maxpool2x2, reorg_k.reorg_s2d
+
+
 def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None = None,
              train: bool = False, compute_dtype=torch.bfloat16, reorg_order: str = "darknet",
              pallas: frozenset = frozenset()):
@@ -163,6 +176,7 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
     use_dwsep = kernel_active("dwsep", pallas)
     use_pool_k = kernel_active("pool", pallas)
     use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
+    dwconv3x3, dwsep, maxpool2x2, reorg_s2d = _launchers()
     slots = {}
     x = x.to(compute_dtype).permute(0, 3, 1, 2)
     resume = 0   # ops before this index ran fused into an earlier one
@@ -178,19 +192,19 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             n = _dwsep_pair(plan, i, x.shape[2], x.dtype) if use_dwsep else None
             if n is not None:
                 q = folded[n.name]
-                x = dwsep_k.dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
-                                  d.stride, q["w_oi"]).permute(0, 3, 1, 2)
+                x = dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"], d.stride,
+                          q["w_oi"]).permute(0, 3, 1, 2)
                 resume = i + 2
                 continue
             if use_dw_k and _dw_routable(d):
-                x = dwconv_k.dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
-                                       d.act).permute(0, 3, 1, 2)
+                x = dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
+                              d.act).permute(0, 3, 1, 2)
                 continue
             y = conv(x, p["w"], stride=d.stride, groups=d.groups)
             key, j, nxt = _after_conv(plan, i)
             if (use_pool_k and nxt is not None and nxt[0] == "pool"
                     and _pool_routable(y, nxt[1], nxt[2])):
-                out = pool_k.maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
+                out = maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
                 if key is not None:
                     out, full = out
                     slots[key] = full.permute(0, 3, 1, 2)
@@ -199,14 +213,14 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             elif use_reorg_k and key is None and nxt is not None and nxt[0] == "reorg":
                 cat = plan[j + 1] if j + 1 < len(plan) and plan[j + 1][0] == "concat" else None
                 tail = None if cat is None else slots[cat[1]].permute(0, 2, 3, 1)
-                x = reorg_k.reorg_s2d(y.permute(0, 2, 3, 1), nxt[1], tail, p["b"],
-                                      d.act).permute(0, 3, 1, 2)
+                x = reorg_s2d(y.permute(0, 2, 3, 1), nxt[1], tail, p["b"],
+                              d.act).permute(0, 3, 1, 2)
                 resume = j + 1 if cat is None else j + 2
             else:
                 x = bias_leaky(y, p["b"], d.act)
         elif kind == "pool":
             if use_pool_k and _pool_routable(x, op[1], op[2]):
-                x = pool_k.maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                x = maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             else:
                 x = max_pool(x, op[1], op[2])
         elif kind == "mark":
@@ -215,7 +229,7 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             x = slots[op[1]]
         elif kind == "reorg":
             if use_reorg_k:
-                x = reorg_k.reorg_s2d(x.permute(0, 2, 3, 1), op[1]).permute(0, 3, 1, 2)
+                x = reorg_s2d(x.permute(0, 2, 3, 1), op[1]).permute(0, 3, 1, 2)
             else:
                 x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
         elif kind == "concat":

@@ -1,14 +1,16 @@
 """Inference wrapper — counterpart of ``yolojax/models/inference.py``:
 backbone forward + decode, the detect path (forward → decode → per-class
-NMS) shared by detect, eval and export, and :func:`to_host`, which brings
-its output to the host.  ``detect_fn(mesh=…)``, the batch sharded over
-devices, is not ported: it waits for data-parallel training."""
+NMS) shared by detect, eval and export, its host variant (NMS in the native
+C++ library), and :func:`to_host`, which brings its output to the host.
+``detect_fn(mesh=…)``, the batch sharded over devices, is not ported: it
+waits for data-parallel training."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..ops.decode import Detections, decode
+from ..ops.decode import Detections, decode, decode_flat
 from ..ops.postprocess import PostProcessed, postprocess
 from . import kernel_active
 
@@ -64,6 +66,33 @@ class Inference:
 
                 return postprocess_nms(det, threshold, overlap, topk)
             return postprocess(det, threshold, overlap, topk)
+
+        return run
+
+    def detect_fn_host(self, threshold: float, overlap: float, topk: int):
+        """(folded, images) → PostProcessed as CPU tensors, with the NMS on the
+        host (BASELINE config 1: "CPU forward + NMS"): the forward and the
+        decode run on the model's device, the packed decode (``decode_flat``)
+        comes to the host in one copy, and the native C++ greedy NMS
+        (``native/nms.cpp``) takes the (image, class) problems over OpenMP
+        threads.  The same packed contract as :meth:`detect_fn`."""
+        from ..native import nms_native_batch
+
+        @torch.inference_mode()
+        def run(folded, images) -> PostProcessed:
+            raw = self.model.apply_folded(folded, images)
+            flat = decode_flat(raw, self._anchors(raw.device)).cpu().numpy()
+            b, n, ch = flat.shape
+            c = ch - 5
+            boxes = flat[..., :4]                                       # (B, N, 4)
+            scores = np.moveaxis(flat[..., 5:], -1, 1).reshape(b * c, n)
+            idx, conf, count = nms_native_batch(
+                np.broadcast_to(boxes[:, None], (b, c, n, 4)).reshape(b * c, n, 4), scores,
+                threshold, overlap, topk)
+            picked = boxes[np.arange(b)[:, None, None], idx.reshape(b, c, topk)]  # (B, C, K, 4)
+            keep = np.arange(topk) < count.reshape(b, c, 1)
+            return PostProcessed(*(torch.from_numpy(np.ascontiguousarray(v)) for v in (
+                picked[..., :2], picked[..., 2:], conf.reshape(b, c, topk), keep)))
 
         return run
 

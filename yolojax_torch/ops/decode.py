@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["decode", "Detections", "softmax_in_class_order"]
+__all__ = ["decode", "decode_flat", "Detections", "softmax_in_class_order"]
 
 
 class Detections(NamedTuple):
@@ -76,3 +76,11 @@ def decode(raw: torch.Tensor, anchors) -> Detections:
         prob=prob.reshape(b, n, -1),
         conf=conf.reshape(b, n, -1),
     )
+
+
+def decode_flat(raw: torch.Tensor, anchors) -> torch.Tensor:
+    """Decode to one packed (B, N, 5 + C) tensor ``[ymin, xmin, ymax, xmax,
+    iou, conf...]``: the export paths' single output, and what the host
+    detect path copies to the host in one piece."""
+    d = decode(raw, anchors)
+    return torch.cat([d.yx_min, d.yx_max, d.iou[..., None], d.conf], dim=-1)

@@ -9,9 +9,15 @@ chains (exact):
   (C/s², H·s, W·s), space-to-depth that view, reinterpret the result as
   (C·s², H/s, W/s).  Not s2d, not even up to a channel permutation.
 
-The darknet order reinterprets a CHW buffer, so the input is made
-contiguous in the standard NCHW format first; a ``channels_last`` tensor
-would otherwise refuse the ``view``.
+The darknet order reinterprets a CHW buffer, so the input is copied into
+the standard NCHW format first; a ``channels_last`` tensor would otherwise
+refuse the ``view``.  The copy is an explicit ``clone``, not
+``contiguous()``: ``torch.export`` decides at trace time whether
+``contiguous()`` copies, from the strides its fake tensors report, and
+those (NCHW for a cuDNN convolution's output, which is ``channels_last`` on
+the card) would leave a replayed program a ``view`` that the real tensor
+refuses.  On the card the input is ``channels_last``, so ``contiguous()``
+copied there as well.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ def reorg_darknet(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     if c % (s * s):
         raise ValueError(f"darknet reorg: channels {c} not divisible by stride² {s*s}")
     oc = c // (s * s)
-    t = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.contiguous_format)
+    t = x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
     t = t.view(b, oc, h, s, w, s)                       # (b, c2, j, p, i, q)
     t = t.permute(0, 3, 5, 1, 2, 4).contiguous()        # (b, p, q, c2, j, i)
     return t.view(b, c * s * s, h // s, w // s).permute(0, 2, 3, 1)

@@ -1,2 +1,3 @@
 """Tools of the port: darknet ``.weights`` import and export, anchor k-means,
-and the kernel-time measurement that runs on the card."""
+ONNX emission, channel pruning, and the kernel-time measurement that runs on
+the card."""
