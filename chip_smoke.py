@@ -148,17 +148,40 @@ Phases, each of which passes or raises (any failure exits non-zero):
    same support box, effective RF within 1e-3 relative); ``plan_to_dot`` of
    the four paths; ``demo_graph``'s export dump of Darknet-s2d;
    ``demo_data``'s samples from the train cache; ``entry()`` on the card.
-   Prints ``{"deploy": {...}}``.
+   Prints ``{"deploy": {...}}``;
+13. data-parallel — two ranks in one gloo group on ``cuda:0``
+   (``parallel/collectives.py::run_ranks``; NCCL refuses two ranks on one
+   card, gloo sums the card's tensors through the host), each a process
+   that drives the entry points a user calls: (a) ``cli.train.Train`` for 3
+   steps at 160², B=2 a rank, f32, TF32 off, the device-resident dataset,
+   against ``Train`` in this process at B=4 on the same global batches:
+   components and ``grad_norm`` rtol 1e-4 at step 1 and 1e-3 after, the
+   params' change, momentum and BN state within ``DIST_PARITY``, the ranks'
+   params, state and momentum bit-identical; (b) Darknet-19 from
+   ``config.ini`` at 416, bf16, B=8 a rank, 4 steps through the loader's
+   shards: every loss finite, every parameter changed, rank 0's checkpoint
+   through ``load_weights_auto`` → ``fold`` → ``detect_fn`` with one fused
+   launch a batch, the step time a rank (information: two processes share
+   the card); (c) ``[data] device_dataset = 1``: the ranks' batches,
+   concatenated, equal one process's device batches and its loader's, bit
+   for bit; (d) ``cli.eval.run_eval`` across the ranks on phase 11's cache
+   and phase 10's checkpoint, f32, TF32 off: mAP within 1e-4 of phase 11's
+   one-process f32 card eval and each class's AP within 1e-3, every
+   launch counter set to 0 just before and read just after on each rank: 3
+   fused launches a rank and nothing else; the bf16 mAP beside it; (e)
+   ``entry.dryrun_multichip(2, device="cuda", backend="gloo")``'s OK line.
+   Prints ``{"dist": {...}}`` and the phase's wall time.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
-paths, the eval path's two runs and the deploy phase's detect, export
-replays and pruned models included, max abs err, ms, plain_ms,
+paths, the eval path's two runs, the deploy phase's detect, export replays
+and pruned models, and the data-parallel phase's detect and every rank's
+eval included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Times are information, not a benchmark.  The train path runs no
 hand-written kernel but the fused decode+NMS on its checkpoint: the JAX
 package trains with every Pallas kernel off.  Eval runs the fused decode+NMS
-(or nms_select with ``pallas = nms``).
+(or nms_select with ``pallas = nms``), on one device or on each rank.
 """
 
 from __future__ import annotations
@@ -2032,6 +2055,7 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
               "img_per_s": EVAL_IMAGES / seconds, "meter_img_per_s": main["rate"],
               "seconds": seconds, "nms_map": nms["map"], "detections": picks,
               "f32_card_map": f32["cuda"]["map"], "f32_cpu_map": f32["cpu"]["map"],
+              "f32_card_ap": {names[k]: v for k, v in f32["cuda"]["ap"].items()},
               "f32_gap": gap, "weights_map": child["map"], "fused_trained_err": fused_err,
               "fused_times": times, "phase_seconds": time.perf_counter() - t0}
     log(f"[eval] {card} | eval at {SIZE}, bf16, batch {EVAL_BATCH}: {EVAL_IMAGES} images in "
@@ -2445,6 +2469,343 @@ def deploy_phase(card: str, final: str) -> tuple[dict, dict]:
     return launches, result
 
 
+# -- the data-parallel phase -----------------------------------------------------
+
+DIST_RANKS = 2              # processes in one gloo group on cuda:0 (NCCL refuses two on one card)
+DIST_SIZE, DIST_BATCH, DIST_STEPS = 160, 2, 3       # (a) f32 parity, B a rank; (c) batches
+DIST_FULL_BATCH, DIST_FULL_STEPS = 8, 4             # (b) full width, bf16 at 416, B a rank
+# (a) ranks against one process at the global batch: components and grad_norm rtol at the
+# first step and after; the params' change, the momentum trace and the BN state as
+# ‖ranks − one‖ / ‖one‖ over the model.  The two sum the BN statistics and the gradients
+# in other orders, and cuDNN's f32 convolutions differ with the batch (B=2 a rank, 4 in
+# one process); at 160², B=2 a rank, BN amplifies that rounding: one step's params'
+# change moves by 1e-3 to 1e-2 between card and CPU (the train phase's TRAIN_PARITY), and
+# over three steps the components by up to 3e-3 (seen on the H100).  So the first step is
+# held at 1e-4, the later ones at 1e-2, the change at the train phase's 2e-2, the trace,
+# which the later steps' gradients dominate, at 3x it (test_torch_train_step.py's ratio),
+# and the BN state at 1e-5; tests/test_torch_dist_train.py holds the same sync in f64 to
+# 1e-9, and a rank's BN state without the sync lies 2e-3 away
+DIST_PARITY = {"first": 1e-4, "later": 1e-2, "change": 2e-2, "trace": 6e-2, "state": 1e-5}
+DIST_EVAL_PARITY = {"map": 1e-4, "ap": 1e-3}        # (d) against phase 11's f32 card eval
+COMPONENTS = ("coord", "object", "noobject", "cls", "prior", "total", "grad_norm")
+
+
+def dist_args(name: str, *argv):
+    """``train_args`` for a run of the data-parallel phase: model ``name``
+    under TRAIN_ROOT (the train phase's cache), no prewarm."""
+    return train_args("-m", f"model/name={name}", "train/prewarm=0", *argv)
+
+
+def parity_args(name: str, batch: int):
+    """(a): f32 model and pixels at DIST_SIZE², the device-resident dataset
+    (the same global batches in one process and on the ranks), DIST_STEPS of
+    ``tests/test_torch_train_step.py``'s sgd, whose bounds DIST_PARITY are
+    (clip 5, BN-γ sparsity 0.01, a milestone at step 2)."""
+    return dist_args(name, "-m", "model/dtype=float32", "transform/dtype=float32",
+                     f"train/multi_scale_min={DIST_SIZE}", f"train/multi_scale_max={DIST_SIZE}",
+                     "train/milestones=2", "train/gamma=0.1", "train/sparsity=0.01",
+                     "data/device_dataset=1", "--batch", str(batch), "--steps", str(DIST_STEPS))
+
+
+def full_args():
+    """(b): config.ini's Darknet-19 in bf16 at SIZE through the loader."""
+    return dist_args("dist-full", "-m", f"train/multi_scale_min={SIZE}",
+                     f"train/multi_scale_max={SIZE}", "--batch", str(DIST_FULL_BATCH),
+                     "--steps", str(DIST_FULL_STEPS))
+
+
+def batches_args(batch: int):
+    """(c): the device-resident dataset's batches of ``batch`` a rank."""
+    return dist_args("dist-batches", "-m", "data/device_dataset=1", "--batch", str(batch))
+
+
+def tree_digest(*trees) -> str:
+    """A hash of every leaf's bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in trees:
+        for k in sorted(tree):
+            for n in sorted(tree[k]):
+                h.update(tree[k][n].detach().contiguous().reshape(-1).view(torch.uint8)
+                         .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def eval_imread():
+    """The eval phase's cv2 stand-in's imread, in RGB (a fresh rank has no
+    module of its own)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_cv2_stub",
+                                                  EVAL_DIR / "stub" / "cv2.py")
+    cv2_stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cv2_stub)
+    return lambda path: cv2_stub.imread(path)[:, :, ::-1]
+
+
+def dist_rank(group, final: str) -> dict:
+    """One rank of the data-parallel phase, on cuda:0: (a) the f32 parity
+    run, (b) the full-width run, (c) the device-resident batches, (d) eval
+    across the ranks, each through the entry points a user calls.  Returns
+    what the parent checks."""
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.eval import run_eval
+    from yolojax_torch.cli.train import Train
+    from yolojax_torch.data.cache import load_cache
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, _ = synth_records()
+    out = {}
+
+    args, config = parity_args("dist-ranks", DIST_BATCH)
+    train = Train(args, config, imread=images.__getitem__)
+    if train.group is None or train.world != DIST_RANKS:
+        raise AssertionError(f"dist: Train found no group of {DIST_RANKS} ranks")
+    train(max_steps=args.steps)
+    out["parity"] = {"seen": train.seen, "digest": tree_digest(
+        train.params, train.state, train.opt_state["trace"])}
+    del train
+
+    args, config = full_args()
+    train = Train(args, config, imread=images.__getitem__)
+    start = {k: {n: v.clone() for n, v in lp.items()} for k, lp in train.params.items()}
+    step, step_ms = train.train_step, []
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        res = step(*a)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    train.train_step = timed
+    train(max_steps=args.steps)
+    out["full"] = {"step_ms": step_ms, "seen": train.seen,
+                   "unchanged": [f"{k}.{n}" for k, lp in start.items() for n, v in lp.items()
+                                 if torch.equal(v, train.params[k][n])],
+                   "digest": tree_digest(train.params, train.state)}
+    del train, start
+
+    args, config = batches_args(DIST_BATCH)
+    source = Train(args, config, imread=images.__getitem__).device_batches()
+    out["batches"] = [{k: v.cpu() for k, v in next(source).items()} for _ in range(DIST_STEPS)]
+    del source
+
+    imread, out["eval"] = eval_imread(), {}
+    counters = launch_counters()
+    for dtype in ("float32", "bfloat16"):
+        cfg = eval_config(f"model/dtype={dtype}")
+        category, _, model = build(cfg)
+        params, state, _ = load_weights_auto(cfg, model, final, device=TRAIN_DEVICE)
+        records = load_cache(cfg, "test")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = run_eval(cfg, model, params, state, records, SIZE, EVAL_BATCH, category,
+                          imread=imread, group=group)
+        torch.cuda.synchronize()
+        out["eval"][dtype] = {"launches": {name: fn.launches for name, fn in counters.items()},
+                              "seconds": time.perf_counter() - t0, "map": result["map"],
+                              "ap": {category[c]: v for c, v in result["ap"].items()},
+                              "detections": sum(len(d) for d in result["recorder"].dets.values())}
+    return out
+
+
+def scalar_rows(config) -> list[dict]:
+    from yolojax_torch.config import get_model_dir
+
+    path = Path(get_model_dir(config)) / "scalars.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def parity_errs(got: dict, want: dict, start: dict) -> dict:
+    """Two parity runs ({rows, params, state, trace}) apart: the components'
+    and grad_norm's largest relative gap at the first step and after, and
+    ‖got − want‖ / ‖want‖ of the params' change from ``start``, the momentum
+    trace and the BN state."""
+    worst = [0.0, 0.0]
+    for i, (g, w) in enumerate(zip(got["rows"], want["rows"])):
+        for k in COMPONENTS:
+            worst[i > 0] = max(worst[i > 0], abs(g[k] - w[k]) / abs(w[k]))
+    change = lambda tree: {k: {n: v - start[k][n] for n, v in lp.items()}
+                           for k, lp in tree.items()}
+    return {"first": worst[0], "later": worst[1],
+            "change": tree_rel(change(got["params"]), change(want["params"])),
+            "trace": tree_rel(got["trace"], want["trace"]),
+            "state": tree_rel(got["state"], want["state"])}
+
+
+def dist_parity(ranks) -> dict:
+    """(a): the ranks' run against ``Train`` in this process at the global
+    batch, from the same seed on the same device batches; and, for scale,
+    that one-process run against itself run again."""
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.train import Train
+    from yolojax_torch.config import get_model_dir
+    from yolojax_torch.utils import checkpoint as ckpt
+
+    images, _ = synth_records()
+    cpu = lambda tree: {k: {n: v.cpu() for n, v in lp.items()} for k, lp in tree.items()}
+    runs = {}
+    for name in ("dist-one", "dist-one-again"):
+        args, config = parity_args(name, DIST_BATCH * DIST_RANKS)
+        one = Train(args, config, imread=images.__getitem__)
+        start = {k: {n: v.cpu().clone() for n, v in lp.items()} for k, lp in one.params.items()}
+        one(max_steps=args.steps)
+        runs[name] = {"rows": scalar_rows(config), "params": cpu(one.params),
+                      "state": cpu(one.state), "trace": cpu(one.opt_state["trace"]),
+                      "seen": one.seen}
+        del one
+    want = runs["dist-one"]
+    _, ranks_config = parity_args("dist-ranks", DIST_BATCH)
+    path = Path(get_model_dir(ranks_config)) / f"{DIST_STEPS}.npz"
+    params, state, meta = load_weights_auto(ranks_config, build(ranks_config)[2], str(path))
+    trace = {k: {n: torch.from_numpy(v) for n, v in lp.items()}
+             for k, lp in ckpt.load(str(path), ("opt",))[0]["opt"]["trace"].items()}
+    got = {"rows": scalar_rows(ranks_config), "params": params, "state": state, "trace": trace}
+    errs = parity_errs(got, want, start)
+    again = parity_errs(runs["dist-one-again"], want, start)
+    same = ranks[0]["parity"]["digest"] == ranks[1]["parity"]["digest"]
+    seen = [r["parity"]["seen"] for r in ranks]
+    fmt = lambda e: (f"components and grad_norm max rel diff {e['first']:.3g} at step 1, "
+                     f"{e['later']:.3g} after; params' change {e['change']:.3g}, momentum "
+                     f"{e['trace']:.3g}, BN state {e['state']:.3g}")
+    log(f"[dist] (a) Train on {DIST_RANKS} ranks, B={DIST_BATCH} each, against one process at "
+        f"B={DIST_BATCH * DIST_RANKS} (f32, {DIST_SIZE}², TF32 off, the device-resident "
+        f"dataset, {DIST_STEPS} steps): {fmt(errs)} (bounds {DIST_PARITY}); the ranks' params, "
+        f"state and momentum {'bit-identical' if same else 'DIFFER'}; seen {seen}")
+    log(f"[dist] (a) for scale, the one-process run against itself run again: {fmt(again)}")
+    if ({len(got["rows"]), len(want["rows"])} != {DIST_STEPS} or not same
+            or meta.get("seen") != want["seen"] or seen != [want["seen"]] * DIST_RANKS
+            or any(errs[k] > DIST_PARITY[k] for k in errs)):
+        raise AssertionError(f"dist (a): {len(got['rows'])} / {len(want['rows'])} scalar rows, "
+                             f"ranks identical {same}, seen {seen} / {meta.get('seen')} / "
+                             f"{want['seen']}, {errs}")
+    return {**errs, "one_process_again": again}
+
+
+def dist_full(ranks) -> tuple[dict, dict]:
+    """(b): the full-width run's losses and parameters, and its rank-0
+    checkpoint through load_weights_auto → fold → detect_fn (the fused
+    launches counted).  Returns (launches, numbers)."""
+    from yolojax_torch.config import get_model_dir
+
+    _, config = full_args()
+    rows = scalar_rows(config)
+    bad = [(r["step"], k) for r in rows for k in COMPONENTS if not np.isfinite(r[k])]
+    unchanged = [r["full"]["unchanged"] for r in ranks]
+    same = ranks[0]["full"]["digest"] == ranks[1]["full"]["digest"]
+    if len(rows) != DIST_FULL_STEPS or bad or any(unchanged) or not same:
+        raise AssertionError(f"dist (b): {len(rows)} scalar rows, non-finite {bad}, unchanged "
+                             f"{unchanged}, ranks identical {same}")
+    ms = [float(np.median(r["full"]["step_ms"][1:])) for r in ranks]
+    log(f"[dist] (b) Darknet-19 (config.ini, bf16, {SIZE}) on {DIST_RANKS} ranks sharing one "
+        f"card, B={DIST_FULL_BATCH} each, {DIST_FULL_STEPS} steps through the loader's shards: "
+        f"every loss finite (total {rows[0]['total']:.4g} → {rows[-1]['total']:.4g}), every "
+        f"parameter changed, the ranks bit-identical; step ms per rank (median after the "
+        f"first, information only: two processes share one card) {[f'{m:.1f}' for m in ms]}")
+    final = str(Path(get_model_dir(config)) / f"{DIST_FULL_STEPS}.npz")
+    launches = trained_detect({"config": config, "final": final, "steps": DIST_FULL_STEPS})
+    return launches, {"first_total": rows[0]["total"], "last_total": rows[-1]["total"],
+                      "step_ms": ms}
+
+
+def dist_batches(ranks) -> int:
+    """(c): the ranks' device batches, concatenated, against one process's
+    device batches and its loader's at the global batch, bit for bit."""
+    from yolojax_torch.cli.train import Train
+    from yolojax_torch.data.device_cache import KEYS
+
+    images, _ = synth_records()
+    args, config = batches_args(DIST_BATCH * DIST_RANKS)
+    one = Train(args, config, imread=images.__getitem__)
+    source, loader = one.device_batches(), one.loader.epoch()
+    for i in range(DIST_STEPS):
+        want, host = next(source), next(loader)
+        for k in KEYS:
+            got = torch.cat([r["batches"][i][k] for r in ranks])
+            if not (torch.equal(got, want[k].cpu())
+                    and torch.equal(got, torch.from_numpy(host[k]))):
+                raise AssertionError(f"dist (c): step {i}, {k}: the ranks' batches differ")
+    log(f"[dist] (c) [data] device_dataset = 1: the {DIST_RANKS} ranks' batches of {DIST_BATCH}, "
+        f"concatenated, equal one process's device batches and its loader's of "
+        f"{DIST_BATCH * DIST_RANKS}, bit for bit, for {DIST_STEPS} steps")
+    return DIST_STEPS
+
+
+def dist_eval(ranks, eval_result: dict) -> tuple[dict, dict]:
+    """(d): eval across the ranks against phase 11's one-process f32 card
+    eval; every rank's launches.  Returns (launches, numbers)."""
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    want = per_batch(postprocess_fused=batches)
+    launches = dict.fromkeys(KERNELS, 0)
+    for r in ranks:
+        for dtype, got in r["eval"].items():
+            if got["launches"] != want:
+                raise AssertionError(f"dist (d): a rank's {dtype} eval launched "
+                                     f"{got['launches']}, expected {want}")
+            launches = {k: launches[k] + got["launches"][k] for k in KERNELS}
+    f32 = ranks[0]["eval"]["float32"]
+    gap = {"map": abs(f32["map"] - eval_result["f32_card_map"]),
+           "ap": max(abs(f32["ap"][k] - v) for k, v in eval_result["f32_card_ap"].items())}
+    same = all(r["eval"][d][k] == ranks[0]["eval"][d][k] for r in ranks for d in r["eval"]
+               for k in ("map", "ap", "detections"))
+    bf16 = ranks[0]["eval"]["bfloat16"]
+    log(f"[dist] (d) run_eval on {DIST_RANKS} ranks, {EVAL_BATCH // DIST_RANKS} images a rank "
+        f"of each batch of {EVAL_BATCH}: f32 mAP {f32['map']:.6f} against one process's "
+        f"{eval_result['f32_card_map']:.6f} (gap {gap['map']:.3g}, largest class AP gap "
+        f"{gap['ap']:.3g}, bounds {DIST_EVAL_PARITY}), {f32['detections']} detections; bf16 "
+        f"mAP {bf16['map']:.6f} (one process: {eval_result['map']:.6f}); each rank launched "
+        f"{want} per eval; every rank returned rank 0's mAP: {same}")
+    if (f32["ap"].keys() != eval_result["f32_card_ap"].keys() or not same
+            or any(gap[k] > DIST_EVAL_PARITY[k] for k in gap)):
+        raise AssertionError(f"dist (d): the eval across ranks differs: {gap}, same {same}")
+    return launches, {"f32_map": f32["map"], "f32_gap": gap, "bf16_map": bf16["map"],
+                      "seconds": {d: r["seconds"] for d, r in ranks[0]["eval"].items()}}
+
+
+def dist_dryrun() -> str:
+    """(e): ``entry.dryrun_multichip(2, device="cuda", backend="gloo")``."""
+    import contextlib
+    import io
+
+    from yolojax_torch.entry import dryrun_multichip
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        dryrun_multichip(DIST_RANKS, device="cuda", backend="gloo")
+    line = printed.getvalue().strip()
+    if not (line.startswith(f"dryrun_multichip({DIST_RANKS}): backbone Darknet total loss")
+            and line.endswith("OK")):
+        raise AssertionError(f"dist (e): dryrun_multichip printed {line!r}")
+    log(f"[dist] (e) {line}")
+    return line
+
+
+def dist_phase(card: str, final: str, eval_result: dict) -> tuple[dict, dict]:
+    """Phase 13: training and eval across two ranks on the card.  Returns
+    (launches of (b) and (d), the dist line)."""
+    from yolojax_torch.parallel.collectives import run_ranks
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(dist_rank, DIST_RANKS, final)
+    ranks_s = time.perf_counter() - t0
+    parity = dist_parity(ranks)
+    full_launches, full = dist_full(ranks)
+    dist_batches(ranks)
+    eval_launches, evaluated = dist_eval(ranks, eval_result)
+    dryrun = dist_dryrun()
+    result = {"card": card, "ranks": DIST_RANKS, "backend": "gloo", "parity": parity,
+              "full": full, "eval": evaluated, "dryrun": dryrun, "ranks_seconds": ranks_s,
+              "seconds": time.perf_counter() - t0}
+    log(f"[dist] the data-parallel phase took {result['seconds']:.1f} s ({ranks_s:.1f} s of it "
+        "the two ranks)")
+    return {k: full_launches[k] + eval_launches[k] for k in KERNELS}, result
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--profile"] and len(args) <= 2:
@@ -2492,16 +2853,18 @@ def main() -> None:
     train_launches, train_result, final = train_phase(card)
     eval_launches, eval_result = eval_phase(card, final)
     deploy_launches, deploy_result = deploy_phase(card, final)
+    dist_launches, dist_result = dist_phase(card, final, eval_result)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
-    # launches: summed over the four main paths' runs (3 batches each); ms,
+    # launches: summed over the four main paths' runs (3 batches each) and the
+    # later phases' (train, eval, deploy, the data-parallel ranks'); ms,
     # plain_ms, library_ms and bound_ms at batch 8: fused on Darknet's raw
     # head, nms_select on Darknet-s2d's decoded head, dwconv3x3 and dwsep
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
-             eval_launches, deploy_launches)
+             eval_launches, deploy_launches, dist_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -2519,6 +2882,7 @@ def main() -> None:
     print(json.dumps({"train": train_result}), flush=True)
     print(json.dumps({"eval": eval_result}), flush=True)
     print(json.dumps({"deploy": deploy_result}), flush=True)
+    print(json.dumps({"dist": dist_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

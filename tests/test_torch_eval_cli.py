@@ -178,10 +178,18 @@ def test_main_runs_end_to_end(setup, reference, tmp_path, capsys):
 
 
 def test_eval_refuses_what_is_not_ported(setup, monkeypatch):
+    """What eval refuses now that eval across ranks is ported: ``--device
+    cuda`` (the default) where torch sees no card, ``WORLD_SIZE > 1``
+    without the rendezvous torchrun sets, and ``run_eval`` under
+    ``WORLD_SIZE > 1`` without a group (no rank evaluates alone)."""
     cfg = setup[0]["voc"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             eval_main(cfg)              # --device defaults to cuda
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+    for k in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2 but RANK, LOCAL_RANK, MASTER_ADDR"):
+        eval_main(cfg + ["--device", "cpu"])
+    with pytest.raises(RuntimeError, match="run_eval got no group"):
         _port_eval(cfg)

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of yolojax_torch, not chip_smoke.py and
-not the card's tests (``tests/test_torch_cuda_*.py``, which run where JAX is
-not installed) imports the JAX package or jax.
+"""The port stands alone: no module of yolojax_torch, not chip_smoke.py, not
+the card's tests (``tests/test_torch_cuda_*.py``, which run where JAX is not
+installed) and not the distributed tests' rank bodies
+(``tests/torch_dist_ranks.py``, which spawned ranks import) imports the JAX
+package or jax.
 
 Each file's AST is walked for ``import yolojax…``, ``from yolojax…`` and
 ``import jax…`` / ``from jax…`` (``yolojax_torch`` itself is allowed).  A
@@ -19,7 +21,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "yolojax_torch"
 CUDA_TESTS = sorted((ROOT / "tests").glob("test_torch_cuda_*.py"))
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + CUDA_TESTS
+# the rank bodies of the distributed tests, which the card's tests import too
+RANKS = ROOT / "tests" / "torch_dist_ranks.py"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", RANKS] + CUDA_TESTS
 FORBIDDEN = ("yolojax", "jax")
 
 
@@ -52,7 +56,8 @@ def test_the_walk_sees_every_module():
             "yolojax_torch/cli/prune.py", "yolojax_torch/cli/demo_data.py",
             "yolojax_torch/cli/demo_graph.py", "yolojax_torch/cli/receptive_field.py",
             "yolojax_torch/tools/onnx_export.py", "yolojax_torch/tools/prune.py",
-            "tests/test_torch_cuda_deploy.py"} <= names
+            "tests/test_torch_cuda_deploy.py", "yolojax_torch/parallel/collectives.py",
+            "yolojax_torch/data/device_cache.py", "tests/test_torch_cuda_dist.py"} <= names
     assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
     # the check itself: a forbidden import is found, the port's own is not
     assert _forbidden("yolojax.config") and _forbidden("jax.numpy") and _forbidden("jax")

@@ -214,11 +214,72 @@ def test_train_cli_runs_resumes_and_crosses_packages(workspace):
 
 
 def test_train_cli_refuses_what_is_not_ported(workspace, monkeypatch):
+    """What the train CLI refuses now that training across devices and the
+    device-resident dataset are ported: ``--device cuda`` (the default)
+    where torch sees no card, and ``WORLD_SIZE > 1`` without the rendezvous
+    torchrun sets (no group to join: no rank goes on alone)."""
     from yolojax_torch.cli.train import main
 
     _, cfg = workspace
-    with pytest.raises(NotImplementedError, match="device_cache"):
-        main(cfg + ["--device", "cpu", "-m", "data/device_dataset=1"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(cfg)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+    for k in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2 but RANK, LOCAL_RANK, MASTER_ADDR"):
         main(cfg + ["--device", "cpu"])
+
+
+def _trained(root, name: str):
+    trees, meta = ckpt.load(str(model_dir(root).parent / name / "3.npz"), ("params", "state"))
+    return trees, meta
+
+
+def _assert_same_trees(a, b, exact: bool):
+    for key in ("params", "state"):
+        for k, lp in b[key].items():
+            for n, v in lp.items():
+                if exact:
+                    np.testing.assert_array_equal(a[key][k][n], v, err_msg=f"{key} {k}.{n}")
+                else:
+                    np.testing.assert_allclose(a[key][k][n], v, rtol=1e-4, atol=1e-6,
+                                               err_msg=f"{key} {k}.{n}")
+
+
+def test_train_cli_device_dataset_trains_what_the_loader_feeds(workspace):
+    """``[data] device_dataset = 1`` on the CPU: three steps from the same
+    seed give the loader path's checkpoint bit for bit (the same batches,
+    gathered on the device)."""
+    from yolojax_torch.cli.train import main
+
+    root, cfg = workspace
+    for name, extra in (("loader", []), ("devdata", ["data/device_dataset=1"])):
+        assert main(cfg + ["--device", "cpu", "--steps", "3", "-m", f"model/name={name}",
+                           "train/prewarm=0", *extra]) == 0
+    (got, meta), (want, want_meta) = _trained(root, "devdata"), _trained(root, "loader")
+    assert meta == want_meta == {"step": 3, "seen": 6}
+    _assert_same_trees(got, want, exact=True)
+
+
+def test_train_cli_on_two_ranks_matches_one_process(workspace):
+    """``Train`` on two gloo ranks (B=1 each) with the device-resident
+    dataset, against one process at B=2: the same global batches and draws,
+    so the same training up to float32 rounding (the BN statistics and the
+    gradients meet in other orders); both ranks end bit-identical, rank 0
+    alone writes, ``seen`` counts the global batch."""
+    import torch_dist_ranks
+
+    from yolojax_torch.parallel.collectives import run_ranks
+
+    root, cfg = workspace
+    argv = cfg + ["--device", "cpu", "--steps", "3", "-m", "train/prewarm=0",
+                  "data/device_dataset=1"]
+    ranks = run_ranks(torch_dist_ranks.train_cli, 2,
+                      argv + ["model/name=ranks", "data/batch_size=1"])
+    one = torch_dist_ranks.train_cli(None, argv + ["model/name=one"])
+    assert [(r["step"], r["seen"], r["lead"]) for r in ranks] == [(3, 6, True), (3, 6, False)]
+    assert ranks[0]["digest"] == ranks[1]["digest"] and one["lead"]
+    (got, meta), (want, want_meta) = _trained(root, "ranks"), _trained(root, "one")
+    assert meta == want_meta == {"step": 3, "seen": 6}
+    _assert_same_trees(got, want, exact=False)

@@ -1,16 +1,19 @@
 """``train`` command of the port — counterpart of ``yolojax/cli/train.py``.
 
     python -m yolojax_torch.cli.train -c config.ini [more.ini …] [--steps N] [-r] [--device cuda]
+    torchrun --nproc_per_node N -m yolojax_torch.cli.train -c config.ini …   # N cards
 
 The loop: the threaded loader's host canvases → copies to the device
-overlapped on a side stream → the augmentation at this step's input size →
-forward (train-mode BN) → region loss → gradients → update, eager on one
-device.  As in the JAX package: the input size is redrawn from the bucketed
-multi-scale sizes every ``[train] multi_scale_interval`` steps by
-``np.random.default_rng([train] seed)``; checkpoints on a seconds cadence, on
-Ctrl-C and at the end (``final``), carrying ``step`` and ``seen``; ``-r``
-resumes from the newest; per-component loss scalars, LR, histograms and box
-images at the ``[summary]`` cadences; ``seen`` drives the loss warmup.
+overlapped on a side stream (or, with ``[data] device_dataset = 1``, the
+batch gathered from the dataset on the device, ``data/device_cache.py``) →
+the augmentation at this step's input size → forward (train-mode BN) →
+region loss → gradients → update, eager.  As in the JAX package: the input
+size is redrawn from the bucketed multi-scale sizes every ``[train]
+multi_scale_interval`` steps by ``np.random.default_rng([train] seed)``;
+checkpoints on a seconds cadence, on Ctrl-C and at the end (``final``),
+carrying ``step`` and ``seen``; ``-r`` resumes from the newest;
+per-component loss scalars, LR, histograms and box images at the
+``[summary]`` cadences; ``seen`` drives the loss warmup.
 
 What differs: the augmentation's draws come from a ``torch.Generator``
 seeded from ``[train] seed + 1`` and the step (so a resumed run draws what
@@ -19,12 +22,27 @@ numbers, so a port run reproduces a JAX run's input sizes and batch order
 but not its pixels.  ``[train] prewarm`` runs one forward and backward per
 bucketed size on a dummy batch (the allocator and cuDNN warm up) and keeps
 nothing of it.  ``-f x.weights`` finetunes from darknet weights, with a fresh
-head where the file's was trained for another class count.  Not ported yet:
-data-parallel training and the device-resident dataset (``[data]
-device_dataset``).
+head where the file's was trained for another class count.
+
+Across devices, one process per card under torchrun, in the group that
+``parallel/collectives.py::init_from_env`` starts (NCCL; ``--device cuda``
+means ``cuda:LOCAL_RANK``), or in a default group the caller started
+before building :class:`Train`.  ``[data] batch_size`` is per rank, as it
+is per process in the JAX package; the global batch is ``batch_size ·
+world``.  Each rank's loader feeds its disjoint shard of the seeded epoch
+(``Loader(shard=(rank, world))``; the device dataset gathers the rank's rows
+of each global index batch); the augmentation's draws are made for the
+global batch and each rank applies its own rows, so the ranks together see
+the pixels one process would see on the global batch; the step averages
+over the group (``parallel/mesh.py``); ``seen`` counts the global batch.
+Only rank 0 writes checkpoints, summaries, box images and profiles: the
+ranks of one machine share its disk, where the JAX package's processes each
+write their own.  ``-r`` loads on every rank.
 
 The RSS watchdog checkpoints and exec-restarts the process with ``-r`` when
 its resident memory passes ``[train] rss_restart_fraction`` of the host's.
+Across ranks it logs and does not restart, as for an in-process caller: one
+rank cannot rejoin its group by exec.
 """
 
 from __future__ import annotations
@@ -40,10 +58,12 @@ import torch
 from .. import config as _config
 from ..data.cache import load_cache
 from ..data.dataset import Dataset, _imread_rgb
+from ..data.device_cache import DeviceDataset
 from ..data.loader import Loader, overlap_device_puts
 from ..data.transform import TrainAugment
 from ..ops.loss import LossConfig
-from ..parallel.mesh import loss_weights_from_config, make_train_step
+from ..parallel.collectives import init_from_env, rank, world
+from ..parallel.mesh import batch_slice, loss_weights_from_config, make_train_step
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import Meter, Summary
 from ..utils.train import build_optimizer, with_frozen
@@ -84,17 +104,6 @@ def multi_scale_sizes(config) -> list[int]:
     return list(range(lo, hi + 1, 32))
 
 
-def _check_single_device(config) -> None:
-    """Raise where the config or the environment asks for what this port
-    does not have yet."""
-    if config.getboolean("data", "device_dataset", fallback=False):
-        raise NotImplementedError("[data] device_dataset = 1: the device-resident dataset "
-                                  "(yolojax/data/device_cache.py) is not ported yet")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("WORLD_SIZE > 1: data-parallel training (DDP with "
-                                  "SyncBatchNorm) is not ported yet; train on one device")
-
-
 def _to_device(tree, device):
     return {k: _to_device(v, device) if isinstance(v, dict) else torch.as_tensor(v).to(device)
             for k, v in tree.items()}
@@ -114,11 +123,11 @@ class Train:
     def __init__(self, args, config, imread=_imread_rgb):
         self.args = args
         self.config = config
-        self.device = torch.device(args.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda, but torch sees no CUDA device; "
                                "pass --device cpu to train on the CPU")
-        _check_single_device(config)
+        self.group, self.device = init_from_env(args.device)
+        self.world, self.lead = world(self.group), rank(self.group) == 0
         self.category, self.anchors, self.model = build(config)
         self.seed = config.getint("train", "seed", fallback=0)
 
@@ -130,10 +139,17 @@ class Train:
                           max_boxes=config.getint("data", "max_boxes", fallback=60),
                           imread=imread, decoded_dir=decoded)
         self.batch_size = args.batch or config.getint("data", "batch_size", fallback=16)
+        shard = (rank(self.group), self.world)
         self.loader = Loader(dataset, self.batch_size,
                              workers=config.getint("data", "workers", fallback=3),
-                             seed=self.seed)
-        self.steps_per_epoch = len(dataset) // self.batch_size
+                             seed=self.seed, shard=shard)
+        self.steps_per_epoch = len(dataset) // (self.batch_size * self.world)
+        self.device_data = None
+        if config.getboolean("data", "device_dataset", fallback=False):
+            self.device_data = DeviceDataset(dataset, self.device, self.batch_size,
+                                             seed=self.seed, shard=shard)
+            _LOG.info("device-resident dataset: %d items, %.0f MB uploaded once",
+                      len(dataset), self.device_data.nbytes / 1e6)
 
         self.params, self.state, meta = load_weights_auto(
             config, self.model, args.finetune, resume=args.resume, rng_seed=self.seed,
@@ -158,7 +174,7 @@ class Train:
         self.augment = TrainAugment.from_config(config)
         self.train_step = make_train_step(self.model, self.optimizer,
                                           loss_weights_from_config(config), loss_cfg,
-                                          augment=self.augment)
+                                          augment=self.augment, group=self.group)
         self.sizes = multi_scale_sizes(config)
         self.interval = config.getint("train", "multi_scale_interval", fallback=10)
         self.rng = np.random.default_rng(self.seed)
@@ -170,10 +186,12 @@ class Train:
         self.restart_argv = None  # set by main() for real CLI invocations
 
         model_dir = _config.get_model_dir(config)
-        self.saver = ckpt.Saver(model_dir,
-                                interval=config.getfloat("save", "interval", fallback=600),
-                                keep=config.getint("save", "keep", fallback=5))
-        self.summary = Summary(model_dir, config)
+        self.saver = self.summary = None      # rank 0 writes
+        if self.lead:
+            self.saver = ckpt.Saver(model_dir,
+                                    interval=config.getfloat("save", "interval", fallback=600),
+                                    keep=config.getint("save", "keep", fallback=5))
+            self.summary = Summary(model_dir, config)
         self.meter = Meter()
         self.profile_dir = None
         self.schedule = _config.parse_attr(config.get(
@@ -196,10 +214,11 @@ class Train:
         self.opt_state = {"count": count, **_to_device(opt, self.device)}
 
     def draws(self, batch: int) -> dict:
-        """This step's augmentation draws: the generator seeded from
-        ``[train] seed + 1`` and the step."""
+        """This step's augmentation draws for this rank's ``batch`` rows: the
+        global batch's, from the generator seeded from ``[train] seed + 1``
+        and the step, sliced to the rank's rows."""
         self.generator.manual_seed(((self.seed + 1) << 32) + self.step)
-        return self.augment.draw(self.generator, batch)
+        return batch_slice(self.augment.draw(self.generator, batch * self.world), self.group)
 
     def prewarm(self):
         """One forward and backward per bucketed size on a dummy batch;
@@ -226,10 +245,16 @@ class Train:
             _LOG.info("prewarmed size %d (%.1fs)", size, time.time() - t0)
 
     def device_batches(self):
-        """Host batches, copied to the device a step ahead."""
+        """This rank's batches on the device: gathered there from the
+        device-resident dataset, or host batches copied a step ahead."""
+        if self.device_data is not None:
+            return iter(self.device_data)
         return overlap_device_puts(iter(self.loader), self.device, BATCH_KEYS)
 
     def save(self, tag: str = ""):
+        """A checkpoint, written by rank 0 only."""
+        if not self.lead:
+            return
         params, state = ckpt.to_jax(self.params, self.state)
         path = self.saver(time.time(), self.step,
                           {"params": params, "state": state, "opt": self.opt_state},
@@ -243,12 +268,15 @@ class Train:
         rss = _rss_gb()
         if rss < self.rss_limit_gb:
             return
-        if self.restart_argv is None:  # in-process caller: can't exec safely
+        if self.restart_argv is None or self.world > 1:
+            # an in-process caller can't exec safely, and a rank can't rejoin its group
             if not getattr(self, "_rss_warned", False):
                 self._rss_warned = True
-                _LOG.warning("RSS %.1f GB exceeds the %.1f GB watchdog limit but train was "
-                             "invoked in-process; cannot exec-restart (run the CLI for "
-                             "self-healing)", rss, self.rss_limit_gb)
+                why = ("train runs on %d ranks" % self.world if self.world > 1
+                       else "train was invoked in-process")
+                _LOG.warning("RSS %.1f GB exceeds the %.1f GB watchdog limit but %s; cannot "
+                             "exec-restart (run the CLI on one device for self-healing)",
+                             rss, self.rss_limit_gb, why)
             return
         self.save("rss-restart")
         self.summary.close()
@@ -269,8 +297,8 @@ class Train:
         total = max_steps or epochs * self.steps_per_epoch
         size = self.sizes[-1] if len(self.sizes) == 1 else 416
         self.prewarm()
-        _LOG.info("training %d steps (%d/epoch) on %s, sizes %s", total, self.steps_per_epoch,
-                  self.device, self.sizes)
+        _LOG.info("training %d steps (%d/epoch) on %s, rank %d of %d, sizes %s", total,
+                  self.steps_per_epoch, self.device, rank(self.group), self.world, self.sizes)
         profiler = None
         source = self.device_batches()
         try:
@@ -284,7 +312,9 @@ class Train:
                     self.params, self.state, self.opt_state, batch,
                     min(self.seen, 2**31 - 1), draws, size)
                 self.step += 1
-                self.seen += self.batch_size
+                self.seen += self.batch_size * self.world
+                if not self.lead:
+                    continue
 
                 if self.profile_dir is not None:  # trace a steady-state window
                     if self.step == 10:
@@ -302,7 +332,8 @@ class Train:
                 if self.summary.due("scalar", self.step):
                     vals = {k: float(v) for k, v in metrics.items() if k != "grads"}
                     self._sync()
-                    self.meter.mark(self.batch_size * self.summary.cadence["scalar"])
+                    self.meter.mark(self.batch_size * self.world
+                                    * self.summary.cadence["scalar"])
                     vals["lr"] = float(self.schedule(self.step))
                     vals["images_per_sec"] = self.meter.rate
                     vals["size"] = size
@@ -323,7 +354,8 @@ class Train:
             if profiler is not None:
                 profiler.stop()
             self.save("final")
-            self.summary.close()
+            if self.summary is not None:
+                self.summary.close()
         return self.step
 
     def _image_summary(self, batch, draws, size: int):

@@ -1,11 +1,12 @@
 """Background-thread batch loader — counterpart of ``yolojax/data/loader.py``.
 
-:class:`Loader` is the JAX package's for one process (no ``shard``: the
-port does not train across processes yet): a thread pool decodes (cv2
-releases the GIL) and collates shuffled batches into a bounded queue; the
-shuffle draws from ``np.random.default_rng(seed)``, so a seed gives the JAX
-loader's batch order.  The batches are size-agnostic host canvases; the train
-loop picks each step's input size and runs the augmentation on the device.
+:class:`Loader` is the JAX package's: a thread pool decodes (cv2 releases
+the GIL) and collates shuffled batches into a bounded queue; the shuffle
+draws from ``np.random.default_rng(seed)``, so a seed gives the JAX loader's
+batch order, and ``shard=(index, count)`` gives rank ``index`` of ``count``
+its disjoint share of every epoch, as the JAX loader gives each process.
+The batches are size-agnostic host canvases; the train loop picks each
+step's input size and runs the augmentation on the device.
 
 :func:`overlap_device_puts` copies upcoming batches to the device from a
 side thread, so batch k+1's copy rides while step k computes: pinned host
@@ -31,20 +32,26 @@ class Loader:
     """Iterates shuffled, collated host batches forever (or one epoch)."""
 
     def __init__(self, dataset, batch_size: int, *, workers: int = 3, seed: int = 0,
-                 shuffle: bool = True, drop_last: bool = True, depth: int = 3):
+                 shuffle: bool = True, drop_last: bool = True, depth: int = 3,
+                 shard: tuple[int, int] = (0, 1)):
+        """``shard=(index, count)`` keeps ``order[index::count]`` of each
+        epoch's seeded shuffle: every rank draws the same order, so the
+        shards are disjoint and together the whole epoch."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.workers = max(1, workers)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.depth = depth
+        self.shard = shard
         self.rng = np.random.default_rng(seed)
 
     def _epoch_order(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
-        return order
+        index, count = self.shard
+        return order[index::count] if count > 1 else order
 
     def _batches(self, order):
         b = self.batch_size

@@ -14,6 +14,13 @@ the scale and shift are f32, so the rest of the epilogue runs in f32, and
 the result is cast back to the compute dtype.  Parameters stay f32 masters
 and are cast inside the forward, so their gradients come back f32.
 
+Across ranks (``group``, a ``torch.distributed`` process group) the train
+mode's statistics are the global batch's, as ``jnp.mean`` / ``jnp.var`` over
+a batch sharded on a mesh give them: each rank's f32 Σy, then its
+Σ(y − mean)², summed over the group (``parallel/collectives.py``).  This is
+not ``nn.SyncBatchNorm``, which updates the running variance with the
+unbiased variance and rounds elsewhere.
+
 Layouts: activations NCHW (``channels_last`` memory on the hot path),
 weights OIHW.
 """
@@ -22,6 +29,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_reduce_sum, world
 
 __all__ = ["BNConfig", "conv_apply", "fold_bn", "leaky_relu", "bias_leaky", "conv",
            "conv_bias_leaky", "max_pool"]
@@ -103,16 +112,29 @@ def conv_bias_leaky(x, w, b, *, stride: int = 1, groups: int = 1, act: bool = Tr
     return bias_leaky(conv(x, w, stride=stride, groups=groups), b, act)
 
 
+def _global_moments(stats, group):
+    """Per-channel mean and biased variance of NCHW ``stats`` over every
+    rank's batch: Σy, then Σ(y − mean)², each summed over the group (the
+    gradient flows back through both sums).  Every rank holds an equal
+    share of the batch."""
+    count = stats.numel() // stats.shape[1] * world(group)
+    mean = all_reduce_sum(stats.sum(dim=(0, 2, 3)), group) / count
+    sq = torch.square(stats - mean.view(1, -1, 1, 1)).sum(dim=(0, 2, 3))
+    return mean, all_reduce_sum(sq, group) / count
+
+
 def conv_apply(params: dict, state: dict, x, *, stride: int = 1, groups: int = 1,
                act: bool = True, bn: BNConfig | None = None, train: bool = False,
-               compute_dtype=torch.bfloat16):
+               compute_dtype=torch.bfloat16, group=None):
     """Conv → BN (or bias) → leaky on an NCHW ``x`` → (y, new_state).
 
     ``params``: f32 ``w`` (OIHW) and ``gamma``/``beta`` with BN or ``b``
     without.  In train mode BN normalizes by the batch's mean and *biased*
     variance and returns the running update ``(1−m)·old + m·batch``,
     detached (``F.batch_norm`` would update with the unbiased variance); in
-    eval mode it uses the running state, which comes back unchanged.
+    eval mode it uses the running state, which comes back unchanged.  With
+    ``group``, the train mode's statistics are the global batch's
+    (:func:`_global_moments`).
     """
     bn = bn or BNConfig()
     y = conv(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride, groups=groups)
@@ -120,7 +142,10 @@ def conv_apply(params: dict, state: dict, x, *, stride: int = 1, groups: int = 1
     if "gamma" in params and bn.enable:
         if train:
             stats = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 sums in f32
-            var, mean = torch.var_mean(stats, dim=(0, 2, 3), correction=0)
+            if group is None:
+                var, mean = torch.var_mean(stats, dim=(0, 2, 3), correction=0)
+            else:
+                mean, var = _global_moments(stats, group)
             mean, var = mean.to(y.dtype), var.to(y.dtype)
             m = bn.momentum
             new_state = {"mean": (1 - m) * state["mean"] + m * mean.detach(),

@@ -83,13 +83,14 @@ class _PlanModel(ModelBase):
             add_kernel_weights(self.plan, folded, self.pallas)
             return folded
 
-    def apply(self, params, state, images, train: bool = False):
+    def apply(self, params, state, images, train: bool = False, group=None):
         """images: (B, H, W, 3) in [0, 1] → (raw head (B, H/32, W/32,
         A*(5+C)), new BN state), on the unfolded params: batch statistics and
-        a fresh state in train mode, the running state otherwise.  Runs no
-        kernel."""
+        a fresh state in train mode, the running state otherwise.  With
+        ``group`` (a process group), the batch is this rank's share and the
+        statistics are the global batch's.  Runs no kernel."""
         return run_plan(self.plan, params, images, state=state, bn=self.bn, train=train,
-                        compute_dtype=self.dtype, reorg_order=self.reorg_order)
+                        compute_dtype=self.dtype, reorg_order=self.reorg_order, group=group)
 
     def apply_folded(self, folded, images):
         """images: (B, H, W, 3) in [0, 1] → raw head (B, H/32, W/32, A*(5+C))."""

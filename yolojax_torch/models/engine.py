@@ -153,7 +153,7 @@ def _launchers():
 
 def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None = None,
              train: bool = False, compute_dtype=torch.bfloat16, reorg_order: str = "darknet",
-             pallas: frozenset = frozenset()):
+             pallas: frozenset = frozenset(), group=None):
     """Execute the plan.
 
     ``x``: (B, H, W, C) images → (B, h, w, C_out) NHWC output in the compute
@@ -164,11 +164,12 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
     routed layer needs the weight layouts of :func:`add_kernel_weights` in
     them.  With ``state`` (BN running stats), ``params`` are the unfolded
     params and the result is ``(output, new_state)``; ``train`` selects
-    batch statistics.
+    batch statistics, which are the global batch's over ``group`` (a process
+    group, ``blocks.conv_apply``) where one is given.
     """
     if state is not None:
         return _run_unfolded(plan, params, state, x, bn=bn or BNConfig(), train=train,
-                             compute_dtype=compute_dtype, reorg_order=reorg_order)
+                             compute_dtype=compute_dtype, reorg_order=reorg_order, group=group)
     if train:
         raise ValueError("a train-mode forward needs the BN state (run_plan(..., state=...))")
     folded = params
@@ -241,7 +242,7 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
 
 
 def _run_unfolded(plan, params, state, x, *, bn: BNConfig, train: bool, compute_dtype,
-                  reorg_order: str):
+                  reorg_order: str, group=None):
     """The unfolded forward → (output, new_state): every conv through
     ``conv_apply``, no kernel.  ``new_state`` holds a fresh (detached) entry
     for each BN layer in train mode and the given one otherwise."""
@@ -254,7 +255,7 @@ def _run_unfolded(plan, params, state, x, *, bn: BNConfig, train: bool, compute_
             d = op[1]
             x, ns = conv_apply(params[d.name], state.get(d.name, {}), x, stride=d.stride,
                                groups=d.groups, act=d.act, bn=bn, train=train,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, group=group)
             if ns:
                 new_state[d.name] = ns
         elif kind == "pool":

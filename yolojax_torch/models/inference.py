@@ -2,8 +2,10 @@
 backbone forward + decode, the detect path (forward → decode → per-class
 NMS) shared by detect, eval and export, its host variant (NMS in the native
 C++ library), and :func:`to_host`, which brings its output to the host.
-``detect_fn(mesh=…)``, the batch sharded over devices, is not ported: it
-waits for data-parallel training."""
+The JAX package's ``detect_fn(mesh=…)``, the batch sharded over devices, is
+one process per device here: each rank calls :meth:`Inference.detect_fn` on
+its share of the batch and the picks meet on rank 0
+(``cli/eval.py::run_eval``)."""
 
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ The passthrough source is the last stride-16 feature (pw11, 512 channels).
 
 On the folded path the ``[model] pallas`` tokens ``dwsep`` and ``dwconv``
 route the depthwise layers to the port's CUDA kernels (``engine.run_plan``).
+Training, on one device or across ranks (``apply(..., group=)``), is
+``_PlanModel``'s unfolded forward, as for Darknet-19.
 """
 
 from __future__ import annotations

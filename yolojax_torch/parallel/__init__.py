@@ -1,1 +1,2 @@
-"""The train step of the port (one device; see ``mesh.py``)."""
+"""The train step of the port (``mesh.py``) and the collectives it and eval
+use across ranks (``collectives.py``)."""
