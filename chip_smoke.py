@@ -170,12 +170,27 @@ Phases, each of which passes or raises (any failure exits non-zero):
    launch counter set to 0 just before and read just after on each rank: 3
    fused launches a rank and nothing else; the bf16 mAP beside it; (e)
    ``entry.dryrun_multichip(2, device="cuda", backend="gloo")``'s OK line.
-   Prints ``{"dist": {...}}`` and the phase's wall time.
+   The train CLI's ``--batch`` is the node's, split over its ranks: (a)
+   and (c) pass 4, (b) 16.  (a) and its one-process runs use deterministic
+   cuDNN.  Prints ``{"dist": {...}}`` and the phase's wall time;
+14. the accuracy gate's chain — ``python -m yolojax_torch.tools.synth_gate``'s
+   ``main`` in this process at full width (Darknet-19, VOC, multi-scale
+   320–608, bf16, the device-resident dataset), cut to 100 images and 300
+   steps, into a scratch artifact: every stage exits 0, the grid holds 8
+   finite mAPs, the COCO block is there, the criteria are
+   ``criteria_for("darknet")``, and with every launch counter set to 0
+   just before and read just after, one fused launch per eval batch of the
+   grid (3 a cell) and one nms_select launch per batch of the ``pallas =
+   nms`` eval; the gate's ``pass`` is printed, not required (300 steps
+   train no detector).  Then ``tests/test_convergence.py``'s learning
+   check on the card: Tiny overfits 6 images at 64² in 600 steps (no
+   augmentation, lr 3e-3, f32) and must reach mAP@0.3 = 1.0.  Prints
+   ``{"gate": {...}}`` and the phase's wall time.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, the eval path's two runs, the deploy phase's detect, export replays
-and pruned models, and the data-parallel phase's detect and every rank's
-eval included, max abs err, ms, plain_ms,
+and pruned models, the data-parallel phase's detect and every rank's eval,
+and the gate's evals included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Times are information, not a benchmark.  The train path runs no
@@ -2474,6 +2489,7 @@ def deploy_phase(card: str, final: str) -> tuple[dict, dict]:
 DIST_RANKS = 2              # processes in one gloo group on cuda:0 (NCCL refuses two on one card)
 DIST_SIZE, DIST_BATCH, DIST_STEPS = 160, 2, 3       # (a) f32 parity, B a rank; (c) batches
 DIST_FULL_BATCH, DIST_FULL_STEPS = 8, 4             # (b) full width, bf16 at 416, B a rank
+# the train CLI's --batch is the node's (the ranks of one machine): B a rank x DIST_RANKS
 # (a) ranks against one process at the global batch: components and grad_norm rtol at the
 # first step and after; the params' change, the momentum trace and the BN state as
 # ‖ranks − one‖ / ‖one‖ over the model.  The two sum the BN statistics and the gradients
@@ -2484,7 +2500,10 @@ DIST_FULL_BATCH, DIST_FULL_STEPS = 8, 4             # (b) full width, bf16 at 41
 # held at 1e-4, the later ones at 1e-2, the change at the train phase's 2e-2, the trace,
 # which the later steps' gradients dominate, at 3x it (test_torch_train_step.py's ratio),
 # and the BN state at 1e-5; tests/test_torch_dist_train.py holds the same sync in f64 to
-# 1e-9, and a rank's BN state without the sync lies 2e-3 away
+# 1e-9, and a rank's BN state without the sync lies 2e-3 away.  Under deterministic cuDNN
+# the one-process run repeats itself exactly (0 on all five, seen on the H100), and the
+# ranks' gap stays (4.7e-3 after step 1, 5.0e-2 on the momentum): it is the arithmetic of
+# B=2 a rank against B=4, not the card's noise, so the bounds stay where they are
 DIST_PARITY = {"first": 1e-4, "later": 1e-2, "change": 2e-2, "trace": 6e-2, "state": 1e-5}
 DIST_EVAL_PARITY = {"map": 1e-4, "ap": 1e-3}        # (d) against phase 11's f32 card eval
 COMPONENTS = ("coord", "object", "noobject", "cls", "prior", "total", "grad_norm")
@@ -2510,7 +2529,7 @@ def parity_args(name: str, batch: int):
 def full_args():
     """(b): config.ini's Darknet-19 in bf16 at SIZE through the loader."""
     return dist_args("dist-full", "-m", f"train/multi_scale_min={SIZE}",
-                     f"train/multi_scale_max={SIZE}", "--batch", str(DIST_FULL_BATCH),
+                     f"train/multi_scale_max={SIZE}", "--batch", str(DIST_FULL_BATCH * DIST_RANKS),
                      "--steps", str(DIST_FULL_STEPS))
 
 
@@ -2559,17 +2578,22 @@ def dist_rank(group, final: str) -> dict:
     images, _ = synth_records()
     out = {}
 
-    args, config = parity_args("dist-ranks", DIST_BATCH)
+    torch.backends.cudnn.deterministic = True       # (a) holds the ranks to DIST_PARITY
+    args, config = parity_args("dist-ranks", DIST_BATCH * DIST_RANKS)
     train = Train(args, config, imread=images.__getitem__)
-    if train.group is None or train.world != DIST_RANKS:
-        raise AssertionError(f"dist: Train found no group of {DIST_RANKS} ranks")
+    if train.group is None or train.world != DIST_RANKS or train.batch_size != DIST_BATCH:
+        raise AssertionError(f"dist: Train found no group of {DIST_RANKS} ranks, or took "
+                             f"{train.batch_size} images a rank, not {DIST_BATCH}")
     train(max_steps=args.steps)
     out["parity"] = {"seen": train.seen, "digest": tree_digest(
         train.params, train.state, train.opt_state["trace"])}
     del train
+    torch.backends.cudnn.deterministic = False
 
     args, config = full_args()
     train = Train(args, config, imread=images.__getitem__)
+    if train.batch_size != DIST_FULL_BATCH:
+        raise AssertionError(f"dist (b): {train.batch_size} images a rank, not {DIST_FULL_BATCH}")
     start = {k: {n: v.clone() for n, v in lp.items()} for k, lp in train.params.items()}
     step, step_ms = train.train_step, []
 
@@ -2588,7 +2612,7 @@ def dist_rank(group, final: str) -> dict:
                    "digest": tree_digest(train.params, train.state)}
     del train, start
 
-    args, config = batches_args(DIST_BATCH)
+    args, config = batches_args(DIST_BATCH * DIST_RANKS)
     source = Train(args, config, imread=images.__getitem__).device_batches()
     out["batches"] = [{k: v.cpu() for k, v in next(source).items()} for _ in range(DIST_STEPS)]
     del source
@@ -2649,6 +2673,7 @@ def dist_parity(ranks) -> dict:
     images, _ = synth_records()
     cpu = lambda tree: {k: {n: v.cpu() for n, v in lp.items()} for k, lp in tree.items()}
     runs = {}
+    torch.backends.cudnn.deterministic = True
     for name in ("dist-one", "dist-one-again"):
         args, config = parity_args(name, DIST_BATCH * DIST_RANKS)
         one = Train(args, config, imread=images.__getitem__)
@@ -2658,8 +2683,9 @@ def dist_parity(ranks) -> dict:
                       "state": cpu(one.state), "trace": cpu(one.opt_state["trace"]),
                       "seen": one.seen}
         del one
+    torch.backends.cudnn.deterministic = False
     want = runs["dist-one"]
-    _, ranks_config = parity_args("dist-ranks", DIST_BATCH)
+    _, ranks_config = parity_args("dist-ranks", DIST_BATCH * DIST_RANKS)
     path = Path(get_model_dir(ranks_config)) / f"{DIST_STEPS}.npz"
     params, state, meta = load_weights_auto(ranks_config, build(ranks_config)[2], str(path))
     trace = {k: {n: torch.from_numpy(v) for n, v in lp.items()}
@@ -2673,7 +2699,8 @@ def dist_parity(ranks) -> dict:
                      f"{e['later']:.3g} after; params' change {e['change']:.3g}, momentum "
                      f"{e['trace']:.3g}, BN state {e['state']:.3g}")
     log(f"[dist] (a) Train on {DIST_RANKS} ranks, B={DIST_BATCH} each, against one process at "
-        f"B={DIST_BATCH * DIST_RANKS} (f32, {DIST_SIZE}², TF32 off, the device-resident "
+        f"B={DIST_BATCH * DIST_RANKS} (f32, {DIST_SIZE}², TF32 off, deterministic cuDNN, the "
+        f"device-resident "
         f"dataset, {DIST_STEPS} steps): {fmt(errs)} (bounds {DIST_PARITY}); the ranks' params, "
         f"state and momentum {'bit-identical' if same else 'DIFFER'}; seen {seen}")
     log(f"[dist] (a) for scale, the one-process run against itself run again: {fmt(again)}")
@@ -2806,6 +2833,184 @@ def dist_phase(card: str, final: str, eval_result: dict) -> tuple[dict, dict]:
     return {k: full_launches[k] + eval_launches[k] for k in KERNELS}, result
 
 
+GATE_DIR = ROOT / "build" / "chip_smoke_gate"   # git-ignored: the short gate, the overfit
+GATE_IMAGES, GATE_STEPS = 100, 300  # the gate's chain at full width, cut in data and steps
+OVERFIT_STEPS, OVERFIT_SIZE = 600, 64
+# tests/test_convergence.py's learning check: Tiny on 6 images of one 32² square each
+OVERFIT_INI = """[config]
+root = {root}/artifacts
+[cache]
+datasets = yolojax.data.voc
+category = {root}/category2
+voc_roots = {root}/VOC2007
+[model]
+name = overfit
+dnn = yolojax.models.darknet.Tiny
+anchors = {root}/anchors.tsv
+dtype = float32
+[data]
+batch_size = 2
+max_boxes = 5
+canvas = 160
+sizes = 64,64
+workers = 2
+[train]
+learning_rate = 3e-3
+clip = 5.0
+multi_scale_min = 64
+multi_scale_max = 64
+multi_scale_interval = 2
+prewarm = 0
+warmup_seen = 0
+seed = 0
+[transform]
+train =
+dtype = float32
+[eval]
+threshold = 0.05
+iou = 0.3
+topk = 10
+batch_size = 2
+[summary]
+scalar = 200
+histogram = 0
+image = 0
+[save]
+interval = 1e9
+keep = 3
+"""
+
+
+def gate_chain(card: str) -> tuple[dict, dict]:
+    """The gate's chain through ``tools/synth_gate`` at full width (Darknet-19,
+    VOC, multi-scale 320–608, bf16), cut to GATE_IMAGES images and GATE_STEPS
+    steps, with every launch counter set to 0 just before and read just
+    after: every stage exits 0 (the tool's exit code is 0 or 1, a pass or a
+    fail; 2 would be a kernel eval that disagrees), 8 finite mAPs, the COCO
+    block, the criteria of ``criteria_for("darknet")``, one fused launch per
+    eval batch of the grid and one nms_select launch per batch of the
+    ``pallas = nms`` eval.  ``pass`` is printed, not required: 300 steps do
+    not train a detector.  Returns (launches, numbers)."""
+    import math
+    import shutil
+
+    from yolojax_torch.tools import synth_gate as gate
+
+    shutil.rmtree(GATE_DIR, ignore_errors=True)
+    out = GATE_DIR / "gate.json"
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = gate.main(["--root", str(GATE_DIR / "ws"), "--model", "darknet", "--images",
+                    str(GATE_IMAGES), "--steps", str(GATE_STEPS), "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    art = json.loads(out.read_text())
+    test_images = min(max(100, GATE_IMAGES // 6), GATE_IMAGES // 2)   # generate_voc's split
+    batches = math.ceil(test_images / 20)
+    want = per_batch(postprocess_fused=8 * batches, nms_select=batches)
+    maps = art["map"]
+    if (rc not in (0, 1) or len(maps) != 8
+            or not all(np.isfinite(v) and 0 <= v <= 1 for v in maps.values())
+            or set(art["coco_ap_416_stretch"]) != {"ap", "ap50", "ap75"}
+            or art["criteria"] != gate.criteria_for("darknet") or launches != want
+            or art["train"]["step"] != GATE_STEPS):
+        raise AssertionError(f"gate: exit {rc}, grid {maps}, coco {art['coco_ap_416_stretch']}, "
+                             f"launches {launches} (expected {want}), step "
+                             f"{art['train']['step']}")
+    log(f"[gate] {card} | python -m yolojax_torch.tools.synth_gate --model darknet --images "
+        f"{GATE_IMAGES} --steps {GATE_STEPS} (Darknet-19, VOC, multi-scale 320-608, bf16, "
+        f"{art['dataset']['codec']}): every stage exited 0 in {seconds:.1f} s (train "
+        f"{art['train']['wall_s']} s with cache and k-means); grid {maps}; COCO AP "
+        f"{art['coco_ap_416_stretch']}; pass {art['pass']} (printed, not required: "
+        f"{GATE_STEPS} steps train no detector); launches {launches}, one fused launch per "
+        f"eval batch ({batches} a grid cell); pallas = nms eval "
+        f"{art['kernel_evals']['stretch_416']}")
+    return launches, {"seconds": seconds, "map": maps, "coco": art["coco_ap_416_stretch"],
+                      "pass": art["pass"], "train_wall_s": art["train"]["wall_s"],
+                      "kernel_evals": art["kernel_evals"]}
+
+
+def overfit_workspace(root: Path) -> list:
+    """tests/test_cli_end_to_end.py's workspace: 6 images of 96x128 with one
+    32² square of one of two classes, as binary PPM (read without cv2)."""
+    voc = root / "VOC2007"
+    for sub in ("ImageSets/Main", "Annotations", "JPEGImages"):
+        (voc / sub).mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    ids = []
+    for i in range(6):
+        h, w, cls = 96, 128, i % 2
+        img = np.full((h, w, 3), 40, np.uint8)
+        y0, x0 = int(rng.integers(8, h - 40)), int(rng.integers(8, w - 40))
+        img[y0:y0 + 32, x0:x0 + 32] = (255, 64, 64) if cls == 0 else (64, 255, 64)
+        ids.append(f"{i:06d}")
+        (voc / "JPEGImages" / f"{ids[-1]}.jpg").write_bytes(
+            f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+        (voc / "Annotations" / f"{ids[-1]}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height></size><object><name>"
+            f"{('square', 'blob')[cls]}</name><difficult>0</difficult><bndbox><xmin>{x0 + 1}"
+            f"</xmin><ymin>{y0 + 1}</ymin><xmax>{x0 + 32}</xmax><ymax>{y0 + 32}</ymax>"
+            "</bndbox></object></annotation>")
+    for phase in ("trainval", "val", "test"):
+        (voc / "ImageSets" / "Main" / f"{phase}.txt").write_text(
+            "\n".join(ids if phase == "trainval" else ids[:4]))
+    (root / "category2").write_text("square\nblob")
+    (root / "anchors.tsv").write_text("1.0\t1.0\n2.5\t2.5\n")
+    (root / "overfit.ini").write_text(OVERFIT_INI.format(root=root))
+    return ["-c", str(ROOT / "config.ini"), str(root / "overfit.ini")]
+
+
+def overfit_check(card: str, device: str = "cuda") -> dict:
+    """tests/test_convergence.py on ``device``: Tiny overfits the 6-image
+    workspace in OVERFIT_STEPS steps at 64² (no augmentation, lr 3e-3, f32)
+    through the cache, train and eval CLIs' code; mAP@0.3 (threshold 0.05)
+    at 64 must be 1.0 (to 1e-9)."""
+    import shutil
+
+    from yolojax_torch.cli import make_parser, setup
+    from yolojax_torch.cli.cache import main as cache_main
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.eval import run_eval
+    from yolojax_torch.cli.train import main as train_main
+    from yolojax_torch.data.cache import load_cache
+
+    root = GATE_DIR / "overfit"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = overfit_workspace(root)
+    t0 = time.perf_counter()
+    if cache_main(cfg) != 0 or train_main(cfg + ["--steps", str(OVERFIT_STEPS),
+                                                 "--device", device]) != 0:
+        raise AssertionError("overfit: the cache or train step failed")
+    train_s = time.perf_counter() - t0
+    config = setup(make_parser("overfit eval").parse_args(cfg))
+    category, _, model = build(config)
+    params, state, meta = load_weights_auto(config, model, None, resume=True, device=device)
+    result = run_eval(config, model, params, state, load_cache(config, "test"), OVERFIT_SIZE,
+                      config.getint("eval", "batch_size"), category)
+    log(f"[gate] {card} | overfit (tests/test_convergence.py): Tiny, 6 images, "
+        f"{OVERFIT_SIZE}², {meta.get('step')} steps in {train_s:.1f} s: mAP@0.3 "
+        f"{result['map']:.6f} (required 1.0), per class {result['ap']}")
+    # 1.0 up to the float rounding of the AP's 11-point sum (1.0000000000000002 on the CPU)
+    if meta.get("step") != OVERFIT_STEPS or abs(result["map"] - 1.0) > 1e-9:
+        raise AssertionError(f"overfit: mAP@0.3 {result['map']} after {meta.get('step')} steps")
+    return {"map": result["map"], "train_s": train_s}
+
+
+def gate_phase(card: str) -> tuple[dict, dict]:
+    """Phase 14: the gate's chain at full width, short, and the overfit
+    learning check.  Returns (launches of the chain, the gate line)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, chain = gate_chain(card)
+    overfit = overfit_check(card)
+    result = {"card": card, "chain": chain, "overfit": overfit,
+              "seconds": time.perf_counter() - t0}
+    log(f"[gate] phase 14 took {result['seconds']:.1f} s")
+    return launches, result
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--profile"] and len(args) <= 2:
@@ -2854,6 +3059,7 @@ def main() -> None:
     eval_launches, eval_result = eval_phase(card, final)
     deploy_launches, deploy_result = deploy_phase(card, final)
     dist_launches, dist_result = dist_phase(card, final, eval_result)
+    gate_launches, gate_result = gate_phase(card)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each) and the
@@ -2864,7 +3070,7 @@ def main() -> None:
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
-             eval_launches, deploy_launches, dist_launches)
+             eval_launches, deploy_launches, dist_launches, gate_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -2883,6 +3089,7 @@ def main() -> None:
     print(json.dumps({"eval": eval_result}), flush=True)
     print(json.dumps({"deploy": deploy_result}), flush=True)
     print(json.dumps({"dist": dist_result}), flush=True)
+    print(json.dumps({"gate": gate_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

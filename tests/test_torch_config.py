@@ -2,7 +2,7 @@
 originals on the same inputs: ``config`` (load_config with overlays and
 ``-m`` mods, get_canvas, get_root_dir, get_cache_dir, get_model_dir,
 get_eval_db, get_category_path, parse_attr on modules and names,
-parse_attr_list, add_config_arguments), ``category`` (get_category, get_anchors), ``cli``
+parse_attr_list, add_config_arguments, config_digest), ``category`` (get_category, get_anchors), ``cli``
 (make_parser, setup) and ``utils.visualize`` (draw_boxes).  Each must give
 exactly what the original gives.
 """
@@ -149,3 +149,13 @@ def test_draw_boxes_matches(rng, dtype):
         got = tvisualize.draw_boxes(image, yx_min, yx_max, *args)
         assert got.dtype == want.dtype and np.array_equal(got, want)
     assert tvisualize.class_colors(7) == jvisualize.class_colors(7)
+
+
+@pytest.mark.parametrize("sections", [("model",), ("model", "data", "transform"),
+                                      ("cache", "nosuchsection"), ()])
+@pytest.mark.parametrize("overlay", sorted(OVERLAYS))
+def test_config_digest_matches(overlay, sections):
+    config = tconfig.load_config(_paths(overlay), MODS)
+    want = jconfig.config_digest(jconfig.load_config(_paths(overlay), MODS), sections)
+    assert tconfig.config_digest(config, sections) == want
+    assert len(want) == 12

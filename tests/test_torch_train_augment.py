@@ -87,6 +87,39 @@ def test_apply_with_jax_draws_matches(ops, dtype):
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
 
 
+@pytest.mark.parametrize("size", [64, 160])            # a downscale of the crop, an upscale
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_resize_matches_without_antialias(dtype, size):
+    """``antialias=False`` (``[transform] antialias = 0``): the triangle keeps
+    one input pixel of support, as ``jax.image`` without the prefilter.  The
+    crop and the flip, which the resize serves; HSV is left out because in
+    bf16 its hue turns a 1-ulp resize difference of a low-chroma pixel into
+    up to 0.04 with or without the prefilter (seen at this seed with
+    ``antialias=True`` too), which is not what this flag changes."""
+    jdt, tdt = DTYPES[dtype]
+    jaug = jtransform.TrainAugment(dtype=jdt, antialias=False, hsv=False)
+    aug = transform.TrainAugment(dtype=tdt, antialias=False, hsv=False)
+    key = jax.random.PRNGKey(13)
+    batch = make_batch(5)
+    draws = jax_draws(jaug, key, len(batch[0]))
+    want = jaug(key, *batch, size)
+    got = aug.apply(*(torch.from_numpy(v) for v in batch), draws, size)
+    img, want_img = got[0].float().numpy(), np.asarray(want[0], np.float32)
+    assert img.shape == want_img.shape == (4, size, size, 3)
+    if dtype == "f32":
+        np.testing.assert_allclose(img, want_img, rtol=0, atol=5e-5)
+    else:
+        diff = np.abs(img - want_img)
+        assert diff.max() <= 2.0 ** -6 and np.mean(diff <= 2.0 ** -7) >= 0.999, diff.max()
+    for i in (1, 2):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    if size == 64:      # the flag is read: on a downscale the prefilter changes the pixels
+        smooth = transform.TrainAugment(dtype=tdt, hsv=False).apply(
+            *(torch.from_numpy(v) for v in batch), draws, size)[0].float().numpy()
+        assert np.abs(smooth - img).max() > 0.05
+
+
 def test_draw_shapes_and_ranges():
     aug = transform.TrainAugment(jitter=0.3, hue=0.2, saturation=2.0, exposure=1.5)
     d = aug.draw(torch.Generator().manual_seed(0), 500)
@@ -122,9 +155,14 @@ def test_from_config_matches():
         "jitter": "0.3", "hue": "0.05", "dtype": "float32"}})
     got, want = transform.TrainAugment.from_config(config), jtransform.TrainAugment.from_config(
         config)
-    for field in ("crop", "flip", "hsv", "jitter", "hue", "saturation", "exposure", "flip_prob"):
+    fields = ("crop", "flip", "hsv", "jitter", "hue", "saturation", "exposure", "flip_prob",
+              "antialias")
+    for field in fields:
         assert getattr(got, field) == getattr(want, field), field
-    assert got.dtype == torch.float32 and not got.flip
+    assert got.dtype == torch.float32 and not got.flip and got.antialias
     config.set("transform", "antialias", "0")
-    with pytest.raises(NotImplementedError, match="antialias"):
-        transform.TrainAugment.from_config(config)
+    got, want = transform.TrainAugment.from_config(config), jtransform.TrainAugment.from_config(
+        config)
+    for field in fields:
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.antialias is False

@@ -263,8 +263,10 @@ def test_train_cli_device_dataset_trains_what_the_loader_feeds(workspace):
 
 
 def test_train_cli_on_two_ranks_matches_one_process(workspace):
-    """``Train`` on two gloo ranks (B=1 each) with the device-resident
-    dataset, against one process at B=2: the same global batches and draws,
+    """``Train`` on two gloo ranks with the device-resident dataset, against
+    one process, from the same ini: ``[data] batch_size = 2`` is the node's,
+    so each rank trains on 1 image and the process on 2, the same global
+    batches and draws,
     so the same training up to float32 rounding (the BN statistics and the
     gradients meet in other orders); both ranks end bit-identical, rank 0
     alone writes, ``seen`` counts the global batch."""
@@ -275,10 +277,11 @@ def test_train_cli_on_two_ranks_matches_one_process(workspace):
     root, cfg = workspace
     argv = cfg + ["--device", "cpu", "--steps", "3", "-m", "train/prewarm=0",
                   "data/device_dataset=1"]
-    ranks = run_ranks(torch_dist_ranks.train_cli, 2,
-                      argv + ["model/name=ranks", "data/batch_size=1"])
+    ranks = run_ranks(torch_dist_ranks.train_cli, 2, argv + ["model/name=ranks"])
     one = torch_dist_ranks.train_cli(None, argv + ["model/name=one"])
     assert [(r["step"], r["seen"], r["lead"]) for r in ranks] == [(3, 6, True), (3, 6, False)]
+    assert [r["batch"] for r in ranks] == [1, 1] and one["batch"] == 2
+    assert [r["steps_per_epoch"] for r in ranks] == [one["steps_per_epoch"]] * 2
     assert ranks[0]["digest"] == ranks[1]["digest"] and one["lead"]
     (got, meta), (want, want_meta) = _trained(root, "ranks"), _trained(root, "one")
     assert meta == want_meta == {"step": 3, "seen": 6}

@@ -143,7 +143,9 @@ def against_one_process(group, run: dict, *args, **kwargs) -> dict:
 
 def cuda_step(group, b: int) -> dict:
     """One float32 step with the augmentation on ``cuda:0``, TF32 off,
-    against one process on the card (:func:`against_one_process`)."""
+    deterministic cuDNN, against one process on the card
+    (:func:`against_one_process`)."""
+    torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     args = ("float32", b, True)
@@ -191,7 +193,8 @@ def eval_run(group, cfg: list, batches: tuple, size: int) -> dict:
 def train_cli(group, argv: list) -> dict:
     """``cli/train.py``'s ``Train`` built from ``argv`` (the group is the
     default one ``Train`` finds) and run to ``--steps``; returns its step,
-    seen, hashes of its params and state, and whether it wrote a summary."""
+    seen, images a rank, steps an epoch, hashes of its params and state, and
+    whether it wrote a summary."""
     from yolojax_torch.cli import setup
     from yolojax_torch.cli.train import Train, train_parser
 
@@ -200,6 +203,7 @@ def train_cli(group, argv: list) -> dict:
     assert (train.group is None) == (group is None)
     train(max_steps=args.steps)
     return {"step": train.step, "seen": train.seen, "lead": train.summary is not None,
+            "batch": train.batch_size, "steps_per_epoch": train.steps_per_epoch,
             "digest": digest({"params": numpy_tree(train.params), "state": numpy_tree(train.state),
                               "trace": numpy_tree(train.opt_state["trace"])})}
 

@@ -27,9 +27,17 @@ head where the file's was trained for another class count.
 Across devices, one process per card under torchrun, in the group that
 ``parallel/collectives.py::init_from_env`` starts (NCCL; ``--device cuda``
 means ``cuda:LOCAL_RANK``), or in a default group the caller started
-before building :class:`Train`.  ``[data] batch_size`` is per rank, as it
-is per process in the JAX package; the global batch is ``batch_size ·
-world``.  Each rank's loader feeds its disjoint shard of the seeded epoch
+before building :class:`Train`.  The batch unit is the node, as it is the
+process in the JAX package, whose one process drives every chip of its host
+and splits ``[data] batch_size`` (or ``--batch``) over them: a rank trains
+on ``batch_size // local_world``, where ``local_world`` is torchrun's
+``LOCAL_WORLD_SIZE`` or, where that is not set, the group's size (every
+rank on one machine).  The global batch is ``batch_size`` times the number
+of nodes; an epoch is ``len(dataset) // batch_size`` steps and ``seen``
+grows by the global batch, as in the JAX package.  Where the JAX package
+shrinks its mesh until the batch splits, a rank cannot be left idle, so a
+batch that does not divide over the node's ranks raises a ``ValueError``.
+Each rank's loader feeds its disjoint shard of the seeded epoch
 (``Loader(shard=(rank, world))``; the device dataset gathers the rank's rows
 of each global index batch); the augmentation's draws are made for the
 global batch and each rank applies its own rows, so the ranks together see
@@ -62,7 +70,7 @@ from ..data.device_cache import DeviceDataset
 from ..data.loader import Loader, overlap_device_puts
 from ..data.transform import TrainAugment
 from ..ops.loss import LossConfig
-from ..parallel.collectives import init_from_env, rank, world
+from ..parallel.collectives import init_from_env, local_world, rank, world
 from ..parallel.mesh import batch_slice, loss_weights_from_config, make_train_step
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import Meter, Summary
@@ -138,12 +146,17 @@ class Train:
         dataset = Dataset(records, canvas=_config.get_canvas(config),
                           max_boxes=config.getint("data", "max_boxes", fallback=60),
                           imread=imread, decoded_dir=decoded)
-        self.batch_size = args.batch or config.getint("data", "batch_size", fallback=16)
+        node_batch = args.batch or config.getint("data", "batch_size", fallback=16)
+        local = local_world(self.group)
+        if node_batch % local:
+            raise ValueError(f"[data] batch_size {node_batch} does not split over the {local} "
+                             "ranks of a node: make it a multiple of LOCAL_WORLD_SIZE")
+        self.batch_size = node_batch // local    # this rank's
         shard = (rank(self.group), self.world)
         self.loader = Loader(dataset, self.batch_size,
                              workers=config.getint("data", "workers", fallback=3),
                              seed=self.seed, shard=shard)
-        self.steps_per_epoch = len(dataset) // (self.batch_size * self.world)
+        self.steps_per_epoch = len(dataset) // node_batch
         self.device_data = None
         if config.getboolean("data", "device_dataset", fallback=False):
             self.device_data = DeviceDataset(dataset, self.device, self.batch_size,

@@ -8,7 +8,9 @@ imports nothing of the JAX package:
 * ``-m section/key=value`` applies ad-hoc modifications (repeatable);
 * values that name code are dotted paths, resolved by :func:`parse_attr`;
 * :func:`get_cache_dir` / :func:`get_model_dir` / :func:`get_eval_db` key the
-  dataset-cache, checkpoint and eval-log paths off the config.
+  dataset-cache, checkpoint and eval-log paths off the config;
+* :func:`config_digest` is a stable digest of chosen sections, for the
+  invalidation of artifacts derived from them.
 
 What differs is the resolution of dotted paths: a value naming ``yolojax.``
 code (a module, or a name in one) resolves to its ``yolojax_torch.``
@@ -20,6 +22,7 @@ to the jax module.
 from __future__ import annotations
 
 import configparser
+import hashlib
 import importlib
 import os
 import re
@@ -175,6 +178,16 @@ def get_category_path(config: configparser.ConfigParser) -> str:
     if not os.path.isabs(path):
         path = os.path.join(os.path.dirname(default_config_path()), path)
     return path
+
+
+def config_digest(config: configparser.ConfigParser, sections: Sequence[str]) -> str:
+    """Stable digest of selected sections, for artifact cache invalidation."""
+    h = hashlib.sha1()
+    for section in sections:
+        if config.has_section(section):
+            for key, value in sorted(config.items(section)):
+                h.update(f"{section}/{key}={value}\n".encode())
+    return h.hexdigest()[:12]
 
 
 def add_config_arguments(parser) -> None:

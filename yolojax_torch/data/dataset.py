@@ -9,12 +9,15 @@ into a fixed-size gray canvas, and pad the labels.
 ``decoded_dir`` turns on the decoded-canvas cache: every canvas is decoded
 once into a uint8 memmap and later epochs are copies.  cv2 is imported only
 where an image is decoded or downscaled; a caller without cv2 passes its own
-``imread``.
+``imread``.  A binary PPM (P6, maxval 255: what ``data/synth.py`` writes
+where OpenCV is missing) is decoded by numpy, by its content whatever its
+name, to the pixels cv2 gives.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 
@@ -23,7 +26,26 @@ __all__ = ["Dataset", "collate", "GRAY"]
 GRAY = 127
 
 
+_PPM_HEADER = re.compile(rb"P6\s+(\d+)\s+(\d+)\s+255\s")
+
+
+def _read_ppm(path: str) -> np.ndarray | None:
+    """A binary PPM's pixels (H, W, 3) RGB, or None for any other file."""
+    with open(path, "rb") as f:
+        if f.read(2) != b"P6":
+            return None
+        data = b"P6" + f.read()
+    header = _PPM_HEADER.match(data)
+    if header is None:
+        return None
+    w, h = int(header.group(1)), int(header.group(2))
+    return np.frombuffer(data, np.uint8, h * w * 3, header.end()).reshape(h, w, 3)
+
+
 def _imread_rgb(path: str) -> np.ndarray:
+    img = _read_ppm(path)
+    if img is not None:
+        return img
     import cv2
 
     img = cv2.imread(path, cv2.IMREAD_COLOR)

@@ -2,6 +2,14 @@
 ``yolojax/data/synth.py`` (numpy draws, cv2 to draw and write the images,
 imported where it draws).
 
+Where OpenCV is not installed (a card machine may have none), :class:`Raster`
+stands in for it: numpy fills the same shapes from the same draws and the
+images are written as binary PPM under the same names, which cv2 and the
+port's ``data/dataset.py`` decode by their content.  The annotations are
+byte for byte the same; the pixels differ at the shapes' edges, where the
+two rasterizers round differently, and by the JPEG codec's loss, which the
+lossless PPM does not have.
+
 No real VOC/COCO images ship with the repository, so end-to-end runs and
 accuracy gates use generated data: 8 shape classes drawn over noisy
 backgrounds, several objects per image with capped-IoU occlusion, in VOC2007's
@@ -17,7 +25,7 @@ import os
 
 import numpy as np
 
-__all__ = ["CLASSES", "generate_voc", "generate_coco", "make_classes"]
+__all__ = ["CLASSES", "generate_voc", "generate_coco", "make_classes", "Raster", "painter"]
 
 CLASSES = ["square", "circle", "triangle", "ring", "cross",
            "diamond", "hbar", "vbar"]
@@ -28,8 +36,82 @@ _BASE_COLOR = {  # RGB base per class, jittered per instance
 }
 
 
+class Raster:
+    """The part of cv2's API the generator calls, in numpy: filled circles,
+    rectangles, ellipses (filled, or a ring of a thickness) and convex
+    polygons, and ``imwrite`` of binary PPM.  A pixel is painted where its
+    integer coordinates lie inside the shape."""
+
+    @staticmethod
+    def _paint(img, y0, y1, x0, x1, inside, color):
+        y0, x0 = max(y0, 0), max(x0, 0)
+        y1, x1 = min(y1, img.shape[0] - 1), min(x1, img.shape[1] - 1)
+        if y1 < y0 or x1 < x0:
+            return
+        yy, xx = np.mgrid[y0:y1 + 1, x0:x1 + 1]
+        region = img[y0:y1 + 1, x0:x1 + 1]
+        region[inside(yy.astype(np.float64), xx.astype(np.float64))] = color
+
+    def rectangle(self, img, pt1, pt2, color, thickness):
+        (xa, ya), (xb, yb) = pt1, pt2
+        self._paint(img, min(ya, yb), max(ya, yb), min(xa, xb), max(xa, xb),
+                    lambda yy, xx: np.ones(yy.shape, bool), color)
+
+    def circle(self, img, center, radius, color, thickness):
+        self.ellipse(img, center, (radius, radius), 0, 0, 360, color, thickness)
+
+    def ellipse(self, img, center, axes, angle, start, end, color, thickness):
+        (cx, cy), (a, b) = center, axes
+        outer = 0.0 if thickness < 0 else thickness / 2.0
+        inner = None if thickness < 0 else (a - thickness / 2.0, b - thickness / 2.0)
+        ao, bo = a + outer, b + outer
+
+        def inside(yy, xx):
+            keep = ((xx - cx) / max(ao, 0.5)) ** 2 + ((yy - cy) / max(bo, 0.5)) ** 2 <= 1.0
+            if inner is not None and min(inner) > 0:
+                keep &= ((xx - cx) / inner[0]) ** 2 + ((yy - cy) / inner[1]) ** 2 > 1.0
+            return keep
+
+        r = int(np.ceil(max(ao, bo)))
+        self._paint(img, cy - r, cy + r, cx - r, cx + r, inside, color)
+
+    def fillPoly(self, img, polys, color):  # noqa: N802 - cv2's name
+        for pts in polys:
+            pts = np.asarray(pts, np.float64)                      # (N, 2) x, y
+            nxt = np.roll(pts, -1, axis=0)
+            # a convex polygon: inside where every edge's cross product has one sign
+            area = np.sum(pts[:, 0] * nxt[:, 1] - nxt[:, 0] * pts[:, 1])
+            sign = 1.0 if area >= 0 else -1.0
+
+            def inside(yy, xx, pts=pts, nxt=nxt, sign=sign):
+                keep = np.ones(yy.shape, bool)
+                for (xa, ya), (xb, yb) in zip(pts, nxt):
+                    keep &= sign * ((xb - xa) * (yy - ya) - (yb - ya) * (xx - xa)) >= 0
+                return keep
+
+            self._paint(img, int(pts[:, 1].min()), int(pts[:, 1].max()),
+                        int(pts[:, 0].min()), int(pts[:, 0].max()), inside, color)
+
+    @staticmethod
+    def imwrite(path, bgr) -> bool:
+        h, w = bgr.shape[:2]
+        rgb = np.ascontiguousarray(bgr[:, :, ::-1])
+        with open(path, "wb") as f:
+            f.write(f"P6\n{w} {h}\n255\n".encode() + rgb.tobytes())
+        return True
+
+
+def painter():
+    """cv2 where OpenCV is installed, else :class:`Raster`."""
+    try:
+        import cv2
+    except ImportError:
+        return Raster()
+    return cv2
+
+
 def _draw(img, cls: str, y0, x0, hh, ww, color):
-    import cv2
+    cv2 = painter()
 
     y1, x1 = y0 + hh, x0 + ww
     if cls in ("square", "hbar", "vbar"):
@@ -95,7 +177,7 @@ def _gen_image(rng, classes: list[str], colors: list[tuple],
     The rng call sequence for the 8 default classes is identical to the
     original generate_voc loop, so VOC gate datasets are unchanged.
     """
-    import cv2
+    cv2 = painter()
 
     h = int(rng.integers(330, 560)); w = int(rng.integers(330, 560))
     img = rng.integers(20, 70, (h, w, 3)).astype(np.uint8)  # noisy bg
@@ -142,7 +224,7 @@ def generate_voc(root: str, n_images: int = 600, seed: int = 7,
 
     trainval/test split is ~5:1 (at least half the images stay in trainval).
     """
-    import cv2
+    cv2 = painter()
 
     voc = os.path.join(root, "VOC2007")
     for sub in ("ImageSets/Main", "Annotations", "JPEGImages"):
@@ -191,7 +273,7 @@ def generate_coco(root: str, n_images: int = 600, seed: int = 7,
     """
     import json
 
-    import cv2
+    cv2 = painter()
 
     classes, colors = make_classes(num_classes)
     coco = os.path.join(root, "coco")

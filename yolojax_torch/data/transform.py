@@ -7,7 +7,9 @@ antialias=True)``, which is separable: for each spatial axis it builds an
 downsampling — normalises each output column, zeroes columns whose sample
 falls outside the input, and contracts the image with both matrices.  The
 port builds the same matrices and contracts them with plain matmuls;
-``F.interpolate`` handles the edges differently.
+``F.interpolate`` handles the edges differently.  The train augmentation
+takes ``[transform] antialias = 0`` as the JAX package does: the triangle
+is then not widened (plain bilinear, darknet's own resize).
 
 :class:`TrainAugment` is darknet's train-time augmentation on a batch of gray
 canvases, with the boxes transformed alongside: a border-jitter crop (pads
@@ -38,16 +40,19 @@ __all__ = ["RandomCrop", "RandomFlipHorizontally", "HSVJitter", "TrainAugment", 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
-def _weight_mat(in_size: int, out_size: int, scale, translation):
-    """Per-image linear antialiased resampling weights: scale, translation
-    (B,) → (B, in_size, out_size), as ``jax.image``'s ``compute_weight_mat``."""
+def _weight_mat(in_size: int, out_size: int, scale, translation, antialias: bool = True):
+    """Per-image linear resampling weights: scale, translation (B,) → (B,
+    in_size, out_size), as ``jax.image``'s ``compute_weight_mat``; with
+    ``antialias`` the triangle widens by 1/scale when downsampling, without
+    it the support stays one input pixel (plain bilinear, darknet's resize)."""
     dev = scale.device
     inv_scale = 1.0 / scale[:, None]
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
     out_pos = torch.arange(out_size, dtype=torch.float32, device=dev)[None, :]
     sample_f = (out_pos + 0.5) * inv_scale - translation[:, None] * inv_scale - 0.5
     in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)[None, :, None]
-    x = torch.abs(sample_f[:, None, :] - in_pos) / kernel_scale[:, :, None]
+    x = torch.abs(sample_f[:, None, :] - in_pos)
+    if antialias:
+        x = x / torch.clamp(inv_scale, min=1.0)[:, :, None]
     weights = torch.clamp(1.0 - torch.abs(x), min=0.0)
     total = weights.sum(dim=1, keepdim=True)
     weights = torch.where(torch.abs(total) > 1000.0 * _F32_EPS,
@@ -56,12 +61,12 @@ def _weight_mat(in_size: int, out_size: int, scale, translation):
     return torch.where(inside[:, None, :], weights, 0.0)
 
 
-def _resize(img, out_size: int, scale, translation):
+def _resize(img, out_size: int, scale, translation, antialias: bool = True):
     """img (B, C, C, 3) → (B, S, S, 3) in ``img``'s dtype: the weight
     matrices, built in f32, are cast to it, as ``jax.image`` casts them."""
     c = img.shape[1]
-    wy = _weight_mat(c, out_size, scale[:, 0], translation[:, 0]).to(img.dtype)   # (B, C, S)
-    wx = _weight_mat(c, out_size, scale[:, 1], translation[:, 1]).to(img.dtype)
+    wy = _weight_mat(c, out_size, scale[:, 0], translation[:, 0], antialias).to(img.dtype)
+    wx = _weight_mat(c, out_size, scale[:, 1], translation[:, 1], antialias).to(img.dtype)
     rows = torch.einsum("byxc,byi->bixc", img, wy)
     return torch.einsum("bixc,bxj->bijc", rows, wx)
 
@@ -162,14 +167,14 @@ class TrainAugment:
     exposure: float = 1.5
     flip_prob: float = 0.5
     dtype: torch.dtype = torch.bfloat16   # pixel dtype; box geometry stays f32
+    # darknet's own resize has no antialias prefilter; True widens the
+    # triangle on a downscale, as the JAX package's default does
+    antialias: bool = True
 
     @classmethod
     def from_config(cls, config):
         names = {t.__name__ if isinstance(t, type) else type(t).__name__
                  for t in parse_attr_list(config.get("transform", "train", fallback=""))}
-        if not config.getboolean("transform", "antialias", fallback=True):
-            raise NotImplementedError("[transform] antialias = 0 is not ported; the port's "
-                                      "resize is the antialiased one")
         return cls(
             crop="RandomCrop" in names,
             flip="RandomFlipHorizontally" in names,
@@ -179,6 +184,7 @@ class TrainAugment:
             saturation=config.getfloat("transform", "saturation", fallback=1.5),
             exposure=config.getfloat("transform", "exposure", fallback=1.5),
             dtype=torch_dtype(config.get("transform", "dtype", fallback="bfloat16")),
+            antialias=config.getboolean("transform", "antialias", fallback=True),
         )
 
     def draw(self, generator: torch.Generator, batch: int) -> dict:
@@ -224,7 +230,7 @@ class TrainAugment:
         scale = float(out_size) / crop_hw
         translation = -crop_origin * scale
         pixels = canvas.to(self.dtype) * torch.tensor(1 / 255.0, dtype=self.dtype, device=dev)
-        img = _resize(pixels, out_size, scale, translation)
+        img = _resize(pixels, out_size, scale, translation, self.antialias)
 
         # boxes: image-normalized → crop-normalized
         off = torch.stack([pt, pl], dim=1)[:, None, :]

@@ -6,6 +6,8 @@ port runs one process per device in a ``torch.distributed`` process group
 and makes each reduction explicit, with the helpers below:
 
 * :func:`world` / :func:`rank` — 1 and 0 with no group (one process);
+* :func:`local_world` — the ranks of this machine, the JAX package's
+  process (the train CLI's batch unit);
 * :func:`init_from_env` — the group torchrun describes (``RANK``,
   ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), or the
   default group a caller already started;
@@ -36,8 +38,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-__all__ = ["world", "rank", "init_from_env", "all_reduce_sum", "average_grads", "average",
-           "gather_to_rank0", "broadcast_from_rank0", "run_ranks"]
+__all__ = ["world", "rank", "local_world", "init_from_env", "all_reduce_sum", "average_grads",
+           "average", "gather_to_rank0", "broadcast_from_rank0", "run_ranks"]
 
 TIMEOUT = datetime.timedelta(seconds=300)   # a collective waiting on a dead peer gives up
 
@@ -50,6 +52,15 @@ def world(group=None) -> int:
 def rank(group=None) -> int:
     """This process's rank in ``group``; 0 with no group."""
     return 0 if group is None else dist.get_rank(group)
+
+
+def local_world(group=None) -> int:
+    """The ranks of ``group`` on this machine: torchrun's
+    ``LOCAL_WORLD_SIZE``, else the whole group (every rank on one machine,
+    as ``run_ranks`` starts them); 1 with no group."""
+    if group is None:
+        return 1
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world(group)))
 
 
 def init_from_env(device) -> tuple:
