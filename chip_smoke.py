@@ -185,12 +185,23 @@ Phases, each of which passes or raises (any failure exits non-zero):
    train no detector).  Then ``tests/test_convergence.py``'s learning
    check on the card: Tiny overfits 6 images at 64² in 600 steps (no
    augmentation, lr 3e-3, f32) and must reach mAP@0.3 = 1.0.  Prints
-   ``{"gate": {...}}`` and the phase's wall time.
+   ``{"gate": {...}}`` and the phase's wall time;
+15. the prune gate's chain — ``python -m yolojax_torch.tools.prune_gate``'s
+   ``main`` in this process at full width (Darknet-19, VOC, 416, bf16),
+   ``--fresh``, cut to 100 images, 200 source steps and 100 finetune steps:
+   every stage exits 0, ``channels_kept`` lies below the dense model's count
+   over the same layers, and with every launch counter set to 0 just before
+   and read just after, one fused launch per eval batch on the dense,
+   pruned and finetuned evals and nothing else; then the pruned
+   checkpoint's raw head on 16 eval images through the fused kernel against
+   its plain version at eval's point (topk 300, f32 and bf16).  The gate's
+   ``pass`` is printed, not required.  Prints ``{"prune_gate": {...}}`` and
+   the phase's wall time.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, the eval path's two runs, the deploy phase's detect, export replays
 and pruned models, the data-parallel phase's detect and every rank's eval,
-and the gate's evals included, max abs err, ms, plain_ms,
+and the two gates' evals included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Times are information, not a benchmark.  The train path runs no
@@ -3011,6 +3022,104 @@ def gate_phase(card: str) -> tuple[dict, dict]:
     return launches, result
 
 
+# -- the prune gate -----------------------------------------------------------------
+
+# the prune gate's chain at full width, cut in data and steps: the source's, the finetune's
+PRUNE_IMAGES, PRUNE_STEPS, PRUNE_FINETUNE_STEPS = 100, 200, 100
+PRUNE_EVALS = ("dense", "pruned", "finetuned")
+
+
+def pruned_picks(root: Path, art: dict, card: str) -> float:
+    """The pruned checkpoint's raw head on the first EVAL_BATCH eval images,
+    as its eval computes it, through the fused kernel against its plain
+    version at eval's point (topk 300), in f32 and bf16; returns the largest
+    abs difference."""
+    from yolojax_torch import cli
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.data.cache import load_cache
+    from yolojax_torch.data.dataset import _imread_rgb
+    from yolojax_torch.tools import prune_gate
+
+    channels = root / "pruned" / "channels.json"
+    config = cli.setup(cli.make_parser("prune picks").parse_args(
+        ["-c", str(ROOT / "config.ini"), str(root / "gate.ini"),
+         *prune_gate.pins(art["sparsity"]), "-m", f"model/channels={channels}"]))
+    config.set("transform", "resize", "yolojax.data.transform.stretch")
+    _, _, model = build(config)
+    ckpt = root / "pruned" / f"{art['source']['step']}.npz"
+    params, state, _ = load_weights_auto(config, model, str(ckpt), device="cuda")
+    raw, anchors = trained_heads(config, params, state, load_cache(config, "test"), _imread_rgb)
+    return max(fused_case(raw.to(dtype), anchors, model.num_classes,
+                          f"{tuple(raw.shape)} pruned {str(dtype)[6:]} topk {EVAL_TOPK} ({card})",
+                          EVAL_TOPK)
+               for dtype in (torch.float32, torch.bfloat16))
+
+
+def prune_phase(card: str) -> tuple[dict, dict]:
+    """Phase 15: ``python -m yolojax_torch.tools.prune_gate``'s ``main`` in this
+    process at full width (Darknet-19, VOC, bf16, ``--fresh``), cut to
+    PRUNE_IMAGES images, PRUNE_STEPS source steps and PRUNE_FINETUNE_STEPS
+    finetune steps, with every launch counter set to 0 just before and read
+    just after: every stage exits 0 (exit code 0 or 1, a pass or a fail),
+    ``channels_kept`` below the dense model's count over the same layers,
+    the finetune at its last step, one fused launch per eval batch on the
+    dense, pruned and finetuned evals and nothing else.  Then the pruned
+    checkpoint's head through the fused kernel against its plain version.
+    ``pass`` is printed, not required.  Returns (launches, the phase's line)."""
+    import math
+    import shutil
+
+    from yolojax_torch import cli
+    from yolojax_torch.cli.common import build
+    from yolojax_torch.tools import prune_gate
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = GATE_DIR / "prune"
+    shutil.rmtree(root, ignore_errors=True)
+    out = GATE_DIR / "prune.json"
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rc = prune_gate.main(["--fresh", "--root", str(root), "--images", str(PRUNE_IMAGES),
+                          "--steps", str(PRUNE_STEPS), "--finetune-steps",
+                          str(PRUNE_FINETUNE_STEPS), "--out", str(out)])
+    chain_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    art = json.loads(out.read_text())
+
+    channels = json.loads((root / "pruned" / "channels.json").read_text())
+    _, _, dense_model = build(cli.setup(cli.make_parser("dense").parse_args(
+        ["-c", str(ROOT / "config.ini"), str(root / "gate.ini")])))
+    dense = sum(d.out_ch for d in dense_model.layer_defs if d.name in channels)
+    test_images = min(max(100, PRUNE_IMAGES // 6), PRUNE_IMAGES // 2)   # generate_voc's split
+    batches = math.ceil(test_images / 20)
+    want = per_batch(postprocess_fused=len(PRUNE_EVALS) * batches)
+    maps = {k: art[f"map_{k}_416"] for k in PRUNE_EVALS}
+    if (rc not in (0, 1) or launches != want
+            or art["eval_launches"] != {k: {"postprocess_fused": batches} for k in PRUNE_EVALS}
+            or not art["channels_kept"] < dense or art["source"]["step"] != PRUNE_STEPS
+            or not all(np.isfinite(v) and 0 <= v <= 1 for v in maps.values())):
+        raise AssertionError(f"prune gate: exit {rc}, launches {launches} (expected {want}), "
+                             f"per eval {art['eval_launches']}, channels kept "
+                             f"{art['channels_kept']} of {dense}, source step "
+                             f"{art['source']['step']}, mAP {maps}")
+    err = pruned_picks(root, art, card)
+    result = {"card": card, "map": maps, "channels_kept": art["channels_kept"],
+              "channels_dense": dense, "pass": art["pass"], "eval_launches": art["eval_launches"],
+              "stage_seconds": art["stage_seconds"], "fused_vs_plain_err": err,
+              "chain_seconds": chain_s, "seconds": time.perf_counter() - t0}
+    log(f"[prune] {card} | python -m yolojax_torch.tools.prune_gate --fresh --images "
+        f"{PRUNE_IMAGES} --steps {PRUNE_STEPS} --finetune-steps {PRUNE_FINETUNE_STEPS} "
+        f"(Darknet-19, VOC, 416, bf16): every stage exited 0 in {chain_s:.1f} s; "
+        f"channels kept {art['channels_kept']} of {dense}; mAP@0.5 {maps}; pass {art['pass']} "
+        f"(printed, not required: {PRUNE_STEPS} steps train no detector); launches {launches}: "
+        f"one fused launch per eval batch, {batches} an eval ({art['eval_launches']}); "
+        f"stages {art['stage_seconds']}; the pruned head's picks match the plain version")
+    log(f"[prune] phase 15 took {result['seconds']:.1f} s")
+    return launches, result
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--profile"] and len(args) <= 2:
@@ -3060,17 +3169,18 @@ def main() -> None:
     deploy_launches, deploy_result = deploy_phase(card, final)
     dist_launches, dist_result = dist_phase(card, final, eval_result)
     gate_launches, gate_result = gate_phase(card)
+    prune_launches, prune_result = prune_phase(card)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each) and the
-    # later phases' (train, eval, deploy, the data-parallel ranks'); ms,
+    # later phases' (train, eval, deploy, the data-parallel ranks', the two gates'); ms,
     # plain_ms, library_ms and bound_ms at batch 8: fused on Darknet's raw
     # head, nms_select on Darknet-s2d's decoded head, dwconv3x3 and dwsep
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
-             eval_launches, deploy_launches, dist_launches, gate_launches)
+             eval_launches, deploy_launches, dist_launches, gate_launches, prune_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -3090,6 +3200,7 @@ def main() -> None:
     print(json.dumps({"deploy": deploy_result}), flush=True)
     print(json.dumps({"dist": dist_result}), flush=True)
     print(json.dumps({"gate": gate_result}), flush=True)
+    print(json.dumps({"prune_gate": prune_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

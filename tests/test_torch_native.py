@@ -14,6 +14,7 @@ contracts the reference's union into an FMA; the port builds with
 reference does.
 """
 
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -28,13 +29,19 @@ from yolojax_torch.kernels._build import BUILD_DIR
 from yolojax_torch.ops.iou import iou_pairwise
 from yolojax_torch.ops.nms import nms_select as plain_nms_select
 
+from torch_port_families import load_reference_native, reference_native_library
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
 def toolchain():
-    if not (native.native_nms_available() and jnative.native_nms_available()):
+    """Both libraries loaded; a skip only where there is no g++ at all: with g++
+    present a failed build fails the test."""
+    if shutil.which("g++") is None:
         pytest.skip("no C++ toolchain")
+    assert native.native_nms_available(), native._error
+    load_reference_native()
 
 
 def problems(rng, g, n, disjoint=False):
@@ -65,6 +72,21 @@ def test_library_builds_under_the_repo_build_dir():
     lib = native.build()
     assert lib.parent == BUILD_DIR and lib.exists()
     assert lib == native.library_path()
+
+
+def test_the_reference_library_loads_after_a_lost_build_race(tmp_path, monkeypatch):
+    """The state a worker is left in when another overwrote its build: the
+    failure remembered and a broken ``.so`` at the reference's path."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", True)
+    so = reference_native_library()
+    assert so.is_relative_to(tmp_path)
+    so.parent.mkdir(parents=True)
+    so.write_bytes(b"not a library")
+    assert not jnative.native_nms_available()
+    assert load_reference_native() is jnative and jnative.native_nms_available()
+    assert so.read_bytes().startswith(b"\x7fELF")
 
 
 @pytest.mark.parametrize("g,n,max_out,threshold,overlap",

@@ -41,6 +41,8 @@ from yolojax_torch.data import synth
 from yolojax_torch.data.dataset import _imread_rgb
 from yolojax_torch.tools import synth_gate as gate
 
+from torch_port_families import one_thread
+
 ROOT = Path(__file__).resolve().parents[1]
 ARTIFACTS = ["SYNTH_GATE.json", "SYNTH_GATE_TINY.json", "SYNTH_GATE_MOBILENET.json",
              "SYNTH_GATE_COCO.json", "SYNTH_GATE_COCO80.json"]
@@ -210,7 +212,7 @@ batch_size = 6
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
     """The gate's chain on the CPU with OpenCV hidden from this process and
-    from the train subprocess."""
+    from the train subprocess, torch on one thread in both."""
     root = tmp_path_factory.mktemp("gate")
     hidden = root / "no_cv2"
     hidden.mkdir()
@@ -221,9 +223,10 @@ def chain(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(sys.modules, "cv2", None)
         mp.setenv("PYTHONPATH", os.pathsep.join([str(hidden), os.environ.get("PYTHONPATH", "")]))
-        rc = gate.main(["--root", str(root / "ws"), "--model", "tiny", "--images", "12",
-                        "--steps", "4", "--device", "cpu", "--out", str(out)],
-                       extra_cfg=[str(overlay)])
+        with one_thread(mp):
+            rc = gate.main(["--root", str(root / "ws"), "--model", "tiny", "--images", "12",
+                            "--steps", "4", "--device", "cpu", "--out", str(out)],
+                           extra_cfg=[str(overlay)])
     return root, rc, json.loads(out.read_text())
 
 

@@ -169,7 +169,8 @@ def model_dir(root):
 
 
 def run(args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    # one torch thread a child: six test workers share the host's cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-4000:]

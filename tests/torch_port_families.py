@@ -1,16 +1,24 @@
-"""Shared by the port's deploy-tool tests (not a test file): the four model
-families of the repo's configs, built by both packages from one config in
-f32, with one set of weights in the JAX package's layout drawn from a numpy
-seed (He-normal HWIO convs, random BN statistics, γ and β) and carried into
-the port by ``checkpoint.from_jax``."""
+"""Shared by the port's deploy-tool and gate tests (not a test file): the
+four model families of the repo's configs, built by both packages from one
+config in f32, with one set of weights in the JAX package's layout drawn
+from a numpy seed (He-normal HWIO convs, random BN statistics, γ and β) and
+carried into the port by ``checkpoint.from_jax``; the reference's native
+library loaded without its build race; torch on one thread for the gate
+chains."""
 
+import contextlib
+import fcntl
+import hashlib
 import json
+import os
 import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch
 
 import yolojax.cli.common as jcommon
+from yolojax import native as jnative
 from yolojax_torch.cli import common as tcommon
 from yolojax_torch.config import load_config
 from yolojax_torch.utils.checkpoint import from_jax
@@ -24,6 +32,52 @@ FAMILIES = {
     "mobilenet": (["config.ini", "config/mobilenet.ini"],
                   ["model/pallas=nms fusedpost dwsep dwconv"]),
 }
+
+
+def reference_native_library() -> Path:
+    """Where ``yolojax.native`` puts its library: ``~/.cache/yolojax``, named
+    by the source's hash."""
+    digest = hashlib.sha1((ROOT / "yolojax" / "native" / "nms.cpp").read_bytes()).hexdigest()
+    return Path(os.path.expanduser("~/.cache/yolojax")) / f"nms_{digest[:12]}.so"
+
+
+def load_reference_native():
+    """Load ``yolojax.native``'s library in this process, or raise.
+
+    The reference compiles into one shared ``<so>.tmp`` and remembers a
+    failure for the process (``yolojax/native/__init__.py``), so test
+    workers that build it at once can leave each other without it, or leave
+    a broken ``.so`` behind.  Here the build runs under an ``fcntl`` lock
+    beside ``~/.cache/yolojax``, a remembered failure is forgotten, and a
+    library that will not load is deleted and built once more."""
+    if jnative._LIB is not None:
+        return jnative
+    so = reference_native_library()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.parent.parent / "yolojax.build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(2):
+            jnative._TRIED = False
+            if jnative.native_nms_available():
+                return jnative
+            so.unlink(missing_ok=True)
+            Path(f"{so}.tmp").unlink(missing_ok=True)
+    raise RuntimeError(f"the reference's native NMS did not build or load ({so})")
+
+
+@contextlib.contextmanager
+def one_thread(mp):
+    """Torch on one thread in this process and, through ``OMP_NUM_THREADS`` in
+    ``mp``'s environment, in the processes it starts.  A gate chain runs
+    beside the other test workers on the same cores; there, every thread
+    more oversubscribes them and slows the chain instead of speeding it."""
+    threads = torch.get_num_threads()
+    mp.setenv("OMP_NUM_THREADS", "1")
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def family_config(name: str, *mods: str):

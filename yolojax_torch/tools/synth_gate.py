@@ -267,14 +267,32 @@ def _stage(what: str, rc: int) -> None:
         raise SystemExit(f"gate: {what} failed (exit code {rc})")
 
 
+def require_device(device: str) -> None:
+    """Raise where the gate is asked for the card and torch sees none."""
+    import torch
+
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError("the gate runs on the card, but torch sees no CUDA device; "
+                           "pass --device cpu to run it on the CPU")
+
+
+def train_subprocess(cfg: list, steps: int, device: str, *extra: str) -> int:
+    """``python -m yolojax_torch.cli.train`` on ``cfg`` to ``steps`` in a child
+    process (its RSS watchdog owns argv), with the repo on its path; returns
+    its exit code."""
+    argv = [sys.executable, "-m", "yolojax_torch.cli.train", *cfg, *extra,
+            "--steps", str(steps), "--device", device]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return subprocess.run(argv, cwd=REPO, env=env).returncode
+
+
 def run_gate(cfg: list, *, root: str, model: str, fmt: str, classes: int, steps: int,
              skip_train: bool = False, resume: bool = False, device: str = "cuda") -> dict:
     """The chain on the workspace of ``cfg`` (``["-c", config.ini, …]``, the
     gate's overlay last but for a caller's own): cache, anchors, the train
     subprocess, the eval grid, COCO AP, the kernel evaluations and the
     adjudication.  Returns the artifact's fields but ``dataset``."""
-    import torch
-
     from ..cli import make_parser, setup
     from ..cli.cache import main as cache_main
     from ..cli.common import build, load_weights_auto
@@ -283,9 +301,7 @@ def run_gate(cfg: list, *, root: str, model: str, fmt: str, classes: int, steps:
     from ..data.cache import load_cache
     from ..eval_ap import evaluate_coco
 
-    if device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError("the gate runs on the card, but torch sees no CUDA device; "
-                           "pass --device cpu to run it on the CPU")
+    require_device(device)
     t0 = time.time()
     _stage("the cache step", cache_main(cfg))
     # anchors from the data itself; Tiny trains through its shipped tiny-voc.tsv
@@ -293,13 +309,8 @@ def run_gate(cfg: list, *, root: str, model: str, fmt: str, classes: int, steps:
         _stage("anchor estimation",
                estimate_main(cfg + ["-k", "5", "-o", os.path.join(root, "anchors.tsv")]))
     if not skip_train:
-        train_argv = [sys.executable, "-m", "yolojax_torch.cli.train", *cfg,
-                      "--steps", str(steps), "--device", device]
-        if resume:
-            train_argv.append("-r")
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
-        _stage("the train subprocess", subprocess.run(train_argv, cwd=REPO, env=env).returncode)
+        _stage("the train subprocess",
+               train_subprocess(cfg, steps, device, *(["-r"] if resume else [])))
     train_s = time.time() - t0
 
     config = setup(make_parser("gate eval").parse_args(cfg))
