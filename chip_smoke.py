@@ -196,12 +196,32 @@ Phases, each of which passes or raises (any failure exits non-zero):
    checkpoint's raw head on 16 eval images through the fused kernel against
    its plain version at eval's point (topk 300, f32 and bf16).  The gate's
    ``pass`` is printed, not required.  Prints ``{"prune_gate": {...}}`` and
-   the phase's wall time.
+   the phase's wall time;
+16. the bench — ``python -m yolojax_torch.tools.bench``'s ``main`` in this
+   process with its stdout captured, BENCH_ITERS=5, under fourteen
+   environments: ``infer`` at B=128 for Darknet-19 at 416, 320 and 608, Tiny
+   and MobileNet at 416, Darknet-19 with ``BENCH_PALLAS=nms``, MobileNet
+   with ``nms,fusedpost,dwconv,dwsep``, Darknet-19 and Tiny with
+   ``nms,fusedpost,pool``; ``latency``; ``train`` at B=16;
+   ``e2e`` at B=16 through the loader and the device dataset and
+   ``pipeline``, where OpenCV imports (where it does not, these runs must
+   refuse naming cv2, and the phase says they did not run).  Each prints
+   one JSON line with ``bench.py``'s metric name, a finite positive value, its unit,
+   ``vs_baseline`` and the card's name and power limit, and with every
+   launch counter set to 0 just before and read just after launches its
+   path's kernels once per detect call: the fused decode+NMS on the default
+   routes, nms_select under ``nms``, MobileNet's 4 dwconv3x3 and 7 dwsep
+   besides, Darknet-19's 3 and Tiny's 2 maxpool2x2 under ``pool``; train,
+   e2e and pipeline none.  The latency run again in 3 processes of its own
+   (B=1 is host-bound and reads the host's state).  Then ``python -m
+   yolojax_torch.tools.sustained_bench`` for 10 s: one fused launch per
+   call, p5 ≤ p50 ≤ p95.  Prints ``{"bench": {...}}`` and the phase's wall
+   time.  The rates are BENCH_ITERS=5 readings, not measurements.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, the eval path's two runs, the deploy phase's detect, export replays
 and pruned models, the data-parallel phase's detect and every rank's eval,
-and the two gates' evals included, max abs err, ms, plain_ms,
+the two gates' evals and the bench's runs included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Times are information, not a benchmark.  The train path runs no
@@ -3120,6 +3140,210 @@ def prune_phase(card: str) -> tuple[dict, dict]:
     return launches, result
 
 
+# -- the bench -----------------------------------------------------------------------
+
+BENCH_DIR = ROOT / "build" / "chip_smoke_bench"   # git-ignored: the sustained record
+BENCH_ITERS = 5             # timed calls (steps, batches) a run; warm ones come on top
+BENCH_WARM_CALLS = 2        # detect calls before an infer or latency run's timed ones
+SUSTAINED_SECONDS = 10
+BENCH_DW = "nms,fusedpost,dwconv,dwsep"
+BENCH_POOL = "nms,fusedpost,pool"
+BENCH_FRESH_LATENCY = 3     # latency runs, each in a process of its own
+FUSED_ONLY = per_batch(postprocess_fused=1)
+# (label, environment, kernel launches per detect call): each run is
+# ``python -m yolojax_torch.tools.bench``'s ``main`` under that environment
+BENCH_RUNS = [
+    ("infer darknet 416", {}, FUSED_ONLY),
+    ("infer darknet 320", {"BENCH_SIZE": "320"}, FUSED_ONLY),
+    ("infer darknet 608", {"BENCH_SIZE": "608"}, FUSED_ONLY),
+    ("infer tiny 416", {"BENCH_MODEL": "tiny"}, FUSED_ONLY),
+    ("infer mobilenet 416", {"BENCH_MODEL": "mobilenet"}, FUSED_ONLY),
+    ("infer darknet 416 nms", {"BENCH_PALLAS": "nms"}, per_batch(nms_select=1)),
+    ("infer darknet 416 " + BENCH_POOL, {"BENCH_PALLAS": BENCH_POOL},
+     per_batch(postprocess_fused=1, maxpool2x2=3)),
+    ("infer tiny 416 " + BENCH_POOL, {"BENCH_MODEL": "tiny", "BENCH_PALLAS": BENCH_POOL},
+     TINY_LAUNCHES),
+    ("infer mobilenet 416 " + BENCH_DW, {"BENCH_MODEL": "mobilenet", "BENCH_PALLAS": BENCH_DW},
+     MOBILENET_LAUNCHES),
+    ("latency darknet 416", {"BENCH_MODE": "latency"}, FUSED_ONLY),
+    ("train darknet 416 B=16", {"BENCH_MODE": "train", "BENCH_BATCH": "16"}, per_batch()),
+    ("e2e darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16"}, per_batch()),
+    ("e2e devdata darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16",
+                                      "BENCH_E2E_DEVDATA": "1"}, per_batch()),
+    ("pipeline 416 B=128", {"BENCH_MODE": "pipeline"}, per_batch()),
+]
+BENCH_ENV = ("BENCH_BATCH", "BENCH_ITERS", "BENCH_MODE", "BENCH_MODEL", "BENCH_SIZE",
+             "BENCH_PALLAS", "BENCH_SATURATED", "BENCH_E2E_DEVDATA", "BENCH_E2E_DECOMP")
+
+
+def bench_metric(env: dict) -> str:
+    """The metric name ``bench.py`` prints under ``env``."""
+    mode, model = env.get("BENCH_MODE", "infer"), env.get("BENCH_MODEL", "darknet")
+    tag = "" if model == "darknet" else f"_{model}"
+    size = env.get("BENCH_SIZE", "416")
+    if mode == "latency":
+        return f"yolov2{tag}_{size}_detect_latency_ms"
+    if mode == "e2e" and env.get("BENCH_E2E_DEVDATA") == "1":
+        mode = "e2e_devdata"
+    return f"yolov2{tag}_{size}_{mode}_images_per_sec_per_chip"
+
+
+def bench_run(env: dict) -> tuple[dict, dict, float]:
+    """``tools/bench.py``'s ``main`` in this process under ``env`` (and
+    BENCH_ITERS) with its stdout captured and every launch counter set to 0
+    just before and read just after; returns (its one JSON line, the
+    launches, seconds)."""
+    import contextlib
+    import io
+    import os
+
+    from yolojax_torch.tools import bench
+
+    saved = {k: os.environ.pop(k, None) for k in BENCH_ENV}
+    os.environ.update({"BENCH_ITERS": str(BENCH_ITERS), **env})
+    counters = launch_counters()
+    out = io.StringIO()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench under {env}: printed {lines}, not one line")
+    return json.loads(lines[0]), launches, seconds
+
+
+def fresh_latency(card: str) -> float:
+    """``BENCH_MODE=latency python -m yolojax_torch.tools.bench`` in a
+    process of its own: its one JSON line's ms per image."""
+    import math
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in BENCH_ENV}
+    env.update(BENCH_MODE="latency", BENCH_ITERS=str(BENCH_ITERS))
+    proc = subprocess.run([sys.executable, "-m", "yolojax_torch.tools.bench"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[0]) if proc.returncode == 0 and len(lines) == 1 else {}
+    if (line.get("metric") != "yolov2_416_detect_latency_ms" or line.get("device") != card
+            or not (math.isfinite(line.get("value", math.nan)) and line["value"] > 0)):
+        raise AssertionError(f"bench latency in a fresh process: exit {proc.returncode}, "
+                             f"stdout {proc.stdout!r}, stderr {proc.stderr[-2000:]!r}")
+    return line["value"]
+
+
+def bench_phase(card: str) -> tuple[dict, dict]:
+    """Phase 16: the port's bench, ``python -m yolojax_torch.tools.bench``,
+    under each of BENCH_RUNS in this process, then ``python -m
+    yolojax_torch.tools.sustained_bench`` for SUSTAINED_SECONDS.  Each run
+    must print one JSON line with ``bench.py``'s metric name, a finite
+    positive value, the unit, ``vs_baseline`` and the card, and launch its
+    path's kernels once per detect call (2 warm calls + BENCH_ITERS for
+    infer, 2 + 100 for latency; train, e2e and pipeline launch none).
+    Without OpenCV the e2e and pipeline runs must refuse, naming cv2.  Then
+    the latency run again in BENCH_FRESH_LATENCY processes of its own.
+    Returns (launches, the phase's line)."""
+    import contextlib
+    import io
+    import math
+    import shutil
+
+    from yolojax_torch.tools import sustained_bench
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    total = per_batch()
+    runs = {}
+    for what, env, per_call in BENCH_RUNS:
+        mode = env.get("BENCH_MODE", "infer")
+        if mode in ("e2e", "pipeline") and not has_cv2:
+            try:
+                bench_run(env)
+            except SystemExit as exc:
+                if "cv2" not in str(exc):
+                    raise AssertionError(f"bench {what}: refused without naming cv2: {exc}")
+                runs[what] = f"not run: OpenCV does not import here ({exc})"
+                log(f"[bench] {what}: not run, OpenCV (cv2) does not import on this machine; "
+                    "the bench refused, naming it")
+                continue
+            raise AssertionError(f"bench {what}: ran without OpenCV")
+        line, launches, seconds = bench_run(env)
+        calls = {"infer": BENCH_WARM_CALLS + BENCH_ITERS,
+                 "latency": BENCH_WARM_CALLS + max(BENCH_ITERS, 100)}.get(mode, 0)
+        want = {k: n * calls for k, n in per_call.items()}
+        unit = "ms" if mode == "latency" else "images/sec"
+        if (line.get("metric") != bench_metric(env) or line.get("unit") != unit
+                or not (math.isfinite(line.get("value", math.nan)) and line["value"] > 0)
+                or set(line) != {"metric", "value", "unit", "vs_baseline", "device"}
+                or line["device"] != card or launches != want):
+            raise AssertionError(f"bench {what}: printed {line} (expected {bench_metric(env)}, "
+                                 f"{unit}, {card}); launches {launches}, expected {want}")
+        runs[what] = {"metric": line["metric"], "value": line["value"], "unit": unit,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "seconds": seconds}
+        total = {k: total[k] + launches[k] for k in total}
+        log(f"[bench] {what}: {line['metric']} = {line['value']} {unit} "
+            f"(BENCH_ITERS={BENCH_ITERS}); launches {runs[what]['launches'] or 'none'} "
+            f"over {calls} detect calls; {seconds:.1f} s")
+
+    # B=1 latency is host-bound, so it reads the host's state: in this
+    # process it comes after fifteen phases; a user runs it in a fresh one
+    fresh = [fresh_latency(card) for _ in range(BENCH_FRESH_LATENCY)]
+    runs["latency darknet 416, fresh processes"] = fresh
+    log(f"[bench] latency darknet 416 in {len(fresh)} fresh processes: {fresh} ms "
+        f"(BENCH_ITERS={BENCH_ITERS}); in this process "
+        f"{runs['latency darknet 416']['value']} ms")
+
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    out = BENCH_DIR / "sustained.json"
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = sustained_bench.main(["--round", "smoke", "--seconds", str(SUSTAINED_SECONDS),
+                                   "--out", str(out)])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    rec = json.loads(out.read_text())
+    want = per_batch(postprocess_fused=BENCH_WARM_CALLS + rec["dispatches"])
+    if (rc != 0 or launches != want or rec["metric"] != "sustained_infer_416"
+            or [json.loads(line) for line in printed.getvalue().splitlines()] != [rec]
+            or not rec["window_rate_p5"] <= rec["window_rate_p50"] <= rec["window_rate_p95"]
+            or not rec["value"] > 0 or rec["device"] != card
+            or rec["seconds"] < SUSTAINED_SECONDS):
+        raise AssertionError(f"sustained bench: exit {rc}, record {rec}, launches {launches} "
+                             f"(expected {want})")
+    total = {k: total[k] + launches[k] for k in total}
+    log(f"[bench] sustained {rec['seconds']} s: {rec['value']} img/s over {rec['windows']} "
+        f"windows, p5/p50/p95 {rec['window_rate_p5']} / {rec['window_rate_p50']} / "
+        f"{rec['window_rate_p95']}, drift {rec['drift_last_vs_first_quartile']}, RSS "
+        f"{rec['rss_mb_start']} -> {rec['rss_mb_end']} MB; launches {launches}")
+    result = {"card": card, "iters": BENCH_ITERS, "runs": runs,
+              "sustained": {k: rec[k] for k in (
+                  "value", "seconds", "windows", "dispatches", "window_rate_p5",
+                  "window_rate_p50", "window_rate_p95", "drift_last_vs_first_quartile",
+                  "rss_mb_start", "rss_mb_end")},
+              "seconds": time.perf_counter() - t0}
+    log(f"[bench] phase 16 took {result['seconds']:.1f} s")
+    return total, result
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args[:1] == ["--profile"] and len(args) <= 2:
@@ -3170,17 +3394,20 @@ def main() -> None:
     dist_launches, dist_result = dist_phase(card, final, eval_result)
     gate_launches, gate_result = gate_phase(card)
     prune_launches, prune_result = prune_phase(card)
+    bench_launches, bench_result = bench_phase(card)
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each) and the
-    # later phases' (train, eval, deploy, the data-parallel ranks', the two gates'); ms,
-    # plain_ms, library_ms and bound_ms at batch 8: fused on Darknet's raw
+    # later phases' (train, eval, deploy, the data-parallel ranks', the two
+    # gates', the bench's); ms, plain_ms, library_ms and bound_ms at batch 8:
+    # fused on Darknet's raw
     # head, nms_select on Darknet-s2d's decoded head, dwconv3x3 and dwsep
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
     # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
-             eval_launches, deploy_launches, dist_launches, gate_launches, prune_launches)
+             eval_launches, deploy_launches, dist_launches, gate_launches, prune_launches,
+             bench_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -3201,6 +3428,7 @@ def main() -> None:
     print(json.dumps({"dist": dist_result}), flush=True)
     print(json.dumps({"gate": gate_result}), flush=True)
     print(json.dumps({"prune_gate": prune_result}), flush=True)
+    print(json.dumps({"bench": bench_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

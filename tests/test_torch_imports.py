@@ -57,7 +57,8 @@ def test_the_walk_sees_every_module():
             "yolojax_torch/cli/demo_graph.py", "yolojax_torch/cli/receptive_field.py",
             "yolojax_torch/tools/onnx_export.py", "yolojax_torch/tools/prune.py",
             "tests/test_torch_cuda_deploy.py", "yolojax_torch/parallel/collectives.py",
-            "yolojax_torch/data/device_cache.py", "tests/test_torch_cuda_dist.py"} <= names
+            "yolojax_torch/data/device_cache.py", "tests/test_torch_cuda_dist.py",
+            "yolojax_torch/tools/bench.py", "yolojax_torch/tools/sustained_bench.py"} <= names
     assert not any(_forbidden(name) for _, name in _imports(ROOT / "yolojax_torch" / "__init__.py"))
     # the check itself: a forbidden import is found, the port's own is not
     assert _forbidden("yolojax.config") and _forbidden("jax.numpy") and _forbidden("jax")

@@ -3,7 +3,8 @@
 Same numpy inputs through both packages.  Tolerances: reorg is a pure
 layout op, so exact; decode rtol/atol 1e-6 (elementwise f32, the two
 frameworks' exp/sigmoid/softmax may differ in the last ulp); NMS indices and
-validity exact, scores rtol 1e-6.
+validity exact, scores rtol 1e-6; ``nms_mask`` and ``nms_topk``'s keep
+masks, order and scores exact.
 """
 
 import importlib
@@ -141,6 +142,54 @@ def test_nms_select_batched_rows_match_jax(rng):
             want = jnms.nms_select(yx_min[bi, ci], yx_max[bi, ci], scores[bi, ci],
                                    0.3, 0.45, max_out)
             _assert_nms_equal([t[bi, ci] for t in got], want)
+
+
+def _nms_scores(rng, n: int, kind: str) -> np.ndarray:
+    """Distinct scores, or only three values (many ties)."""
+    if kind == "tied":
+        return rng.choice(np.asarray([0.2, 0.5, 0.9], np.float32), n)
+    return rng.uniform(0, 1, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["distinct", "tied"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all-valid", "valid-mask"])
+@pytest.mark.parametrize("n,overlap", [(40, 0.45), (25, 0.1), (1, 0.45)])
+def test_nms_mask_matches_jax(rng, kind, masked, n, overlap):
+    """The keep mask is identical; ties are visited lowest index first."""
+    for _ in range(5):
+        yx_min, yx_max = _boxes(rng, (n,))
+        scores = _nms_scores(rng, n, kind)
+        valid = rng.uniform(0, 1, n) > 0.2 if masked else None
+        want = np.asarray(jnms.nms_mask(yx_min, yx_max, scores, overlap, valid))
+        got = tnms.nms_mask(torch.from_numpy(yx_min), torch.from_numpy(yx_max),
+                            torch.from_numpy(scores), overlap,
+                            None if valid is None else torch.from_numpy(valid))
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_nms_mask_is_exported_as_in_the_reference():
+    import yolojax.ops
+    import yolojax_torch.ops
+
+    assert yolojax_torch.ops.nms_mask is tnms.nms_mask and hasattr(yolojax.ops, "nms_mask")
+    assert yolojax_torch.ops.nms_topk is tnms.nms_topk
+
+
+@pytest.mark.parametrize("kind", ["distinct", "tied"])
+@pytest.mark.parametrize("n,threshold,topk", [(30, 0.5, 10), (30, 0.0, 30), (6, 0.3, 10)])
+def test_nms_topk_matches_jax(rng, kind, n, threshold, topk):
+    """Boxes, scores and keep identical, in top-k order (ties lowest index
+    first, as ``jax.lax.top_k``)."""
+    for _ in range(5):
+        yx_min, yx_max = _boxes(rng, (n,))
+        scores = _nms_scores(rng, n, kind)
+        want = jnms.nms_topk(yx_min, yx_max, scores, threshold, 0.45, topk)
+        got = tnms.nms_topk(torch.from_numpy(yx_min), torch.from_numpy(yx_max),
+                            torch.from_numpy(scores), threshold, 0.45, topk)
+        assert got[0].shape == (min(n, topk), 2)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("threshold,topk", [(0.05, 10), (0.6, 4)])

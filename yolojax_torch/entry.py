@@ -7,6 +7,10 @@ decode → per-class NMS) on Darknet-19 YOLOv2 at 416×416 in bf16, with VOC's
 and BN folded; ``images`` is a zero batch of 8.  Everything lives on
 ``device`` (the card unless the caller names another).
 
+``flagship(backbone=)`` — counterpart of ``__graft_entry__.py::_flagship`` —
+builds the model that ``entry()``, ``dryrun_multichip`` and the bench
+(``tools/bench.py``) use: Darknet-19, Tiny or MobileNet under one head.
+
 ``dryrun_multichip(n)`` — counterpart of ``__graft_entry__.py::dryrun_multichip``
 — runs one data-parallel train step of the flagship Darknet-19 on ``n``
 ranks, one process each (``parallel/collectives.py::run_ranks``), and prints
@@ -22,8 +26,9 @@ import torch
 
 from .category import load_anchors_file
 from .data.transform import TrainAugment
-from .models.darknet import Darknet
+from .models.darknet import Darknet, Tiny
 from .models.inference import Inference
+from .models.mobilenet import MobileNet
 from .ops.loss import LossConfig
 from .ops.postprocess import postprocess
 from .parallel.collectives import rank, run_ranks
@@ -35,10 +40,19 @@ __all__ = ["entry", "flagship", "dryrun_multichip"]
 ANCHORS = Path(__file__).resolve().parents[1] / "config" / "anchors" / "voc.tsv"
 
 
-def flagship(num_classes: int = 20, dtype=torch.bfloat16) -> Darknet:
-    """Darknet-19 YOLOv2 with VOC's anchors and ``pallas = nms fusedpost``."""
-    return Darknet(anchors=load_anchors_file(str(ANCHORS)), num_classes=num_classes, dtype=dtype,
-                   pallas=frozenset({"nms", "fusedpost"}))
+def flagship(num_classes: int = 20, dtype=torch.bfloat16, backbone: str | None = None,
+             tiny: bool = False):
+    """The flagship YOLOv2 with VOC's anchors and ``pallas = nms fusedpost``,
+    on the backbone ``backbone`` names: "darknet" (Darknet-19, the default),
+    "tiny" (Tiny-YOLO) or "mobilenet" (MobileNet-YOLOv2, its depthwise
+    kernels off as in the reference); ``tiny=True`` is the older spelling of
+    ``backbone="tiny"``.  Another name raises ``ValueError``."""
+    backbone = backbone or ("tiny" if tiny else "darknet")
+    classes = {"darknet": Darknet, "tiny": Tiny, "mobilenet": MobileNet}
+    if backbone not in classes:
+        raise ValueError(f"flagship: backbone is one of {sorted(classes)}, not {backbone!r}")
+    return classes[backbone](anchors=load_anchors_file(str(ANCHORS)), num_classes=num_classes,
+                             dtype=dtype, pallas=frozenset({"nms", "fusedpost"}))
 
 
 def entry(device="cuda"):
