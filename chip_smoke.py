@@ -6,6 +6,10 @@
                                               # breakdown of PATH's detect at batch 128
                                               # (mobilenet, darknet-s2d, tiny or darknet;
                                               # mobilenet by default)
+    python3 chip_smoke.py --node-rank SPEC    # one rank of phase 17, under torchrun
+    python3 chip_smoke.py --bench-launches    # tools/bench.py's main, its launches on stderr
+    python3 chip_smoke.py --calibrate         # the readings behind phase 14's and phase
+                                              # 17 (a)'s bounds (one JSON line; no check)
 
 Phases, each of which passes or raises (any failure exits non-zero):
 
@@ -183,8 +187,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    grid (3 a cell) and one nms_select launch per batch of the ``pallas =
    nms`` eval; the gate's ``pass`` is printed, not required (300 steps
    train no detector).  Then ``tests/test_convergence.py``'s learning
-   check on the card: Tiny overfits 6 images at 64² in 600 steps (no
-   augmentation, lr 3e-3, f32) and must reach mAP@0.3 = 1.0.  Prints
+   check on the card: Tiny overfits 6 images at 64² in 1200 steps (no
+   augmentation, lr 3e-3, f32, cuDNN's default algorithms) and must reach mAP@0.3
+   = 1.0.  Prints
    ``{"gate": {...}}`` and the phase's wall time;
 15. the prune gate's chain — ``python -m yolojax_torch.tools.prune_gate``'s
    ``main`` in this process at full width (Darknet-19, VOC, 416, bf16),
@@ -217,11 +222,41 @@ Phases, each of which passes or raises (any failure exits non-zero):
    yolojax_torch.tools.sustained_bench`` for 10 s: one fused launch per
    call, p5 ≤ p50 ≤ p95.  Prints ``{"bench": {...}}`` and the phase's wall
    time.  The rates are BENCH_ITERS=5 readings, not measurements.
+17. the last entry points — (a) ``python -m torch.distributed.run --nnodes 2
+   --nproc-per-node 1 --node-rank {0,1}`` of ``chip_smoke.py --node-rank``:
+   two nodes of one rank each on ``cuda:0``, each rank with torchrun's
+   environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE=2``,
+   ``LOCAL_WORLD_SIZE=1``, ``GROUP_RANK``), starting the gloo group itself
+   (NCCL refuses two ranks on one card) before it calls the CLIs' ``main``:
+   the train CLI for 3 steps of Darknet-19 at 416, B=8 a rank, from the
+   device-resident dataset on phase 11's 48 images, in bf16 (config.ini's
+   recipe: every loss finite, ``step`` and ``seen``, no kernel launched)
+   and in f32 (TF32 off, deterministic cuDNN, phase 13 (a)'s sgd: rank 0's
+   checkpoint against ``Train`` in this process at the global batch of 16
+   within ``DIST_PARITY``, whose readings ``--calibrate`` gives: config.ini's
+   recipe in f32 and f64, and two planted faults), then the eval CLI on the
+   bf16 checkpoint split
+   over the two, with one fused decode+NMS launch a batch on each rank;
+   (b) ``python -m yolojax_torch.tools.c80_fusedpost``'s ``main`` at B=64,
+   3 calls a route: its JSON line with the card, one postprocess_fused a
+   fused call and one nms_select a separate call (the wrappers' counts, and
+   a CUDA graph capture of one fused call and of the separate route's post
+   stage); then both kernels at that shape against their plain versions on
+   a dense head (the weights' own objectness: ~475 000 boxes kept): the
+   fused kernel against ``postprocess_raw`` (phase 3's bounds), nms_select
+   identical to ``ops/nms.py``'s and ``postprocess_nms`` against
+   ``postprocess``; (c) ``python -m yolojax_torch.tools.bench_all --only LATENCY
+   TINY`` at BENCH_ITERS=5, each job's bench run as ``chip_smoke.py
+   --bench-launches`` (the bench counting its own launches into the
+   artifact's diagnostics): one artifact a job with the card, one fused
+   launch a detect call.  Prints ``{"nodes": {...}}`` and the phase's wall
+   time.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, the eval path's two runs, the deploy phase's detect, export replays
 and pruned models, the data-parallel phase's detect and every rank's eval,
-the two gates' evals and the bench's runs included, max abs err, ms, plain_ms,
+the two gates' evals, the bench's runs and phase 17's (both nodes' eval,
+the COCO-80 tool, the runner's two jobs) included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Times are information, not a benchmark.  The train path runs no
@@ -232,6 +267,7 @@ package trains with every Pallas kernel off.  Eval runs the fused decode+NMS
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -2826,7 +2862,6 @@ def dist_eval(ranks, eval_result: dict) -> tuple[dict, dict]:
 
 def dist_dryrun() -> str:
     """(e): ``entry.dryrun_multichip(2, device="cuda", backend="gloo")``."""
-    import contextlib
     import io
 
     from yolojax_torch.entry import dryrun_multichip
@@ -2866,7 +2901,12 @@ def dist_phase(card: str, final: str, eval_result: dict) -> tuple[dict, dict]:
 
 GATE_DIR = ROOT / "build" / "chip_smoke_gate"   # git-ignored: the short gate, the overfit
 GATE_IMAGES, GATE_STEPS = 100, 300  # the gate's chain at full width, cut in data and steps
-OVERFIT_STEPS, OVERFIT_SIZE = 600, 64
+# tests/test_convergence.py trains 600 steps.  On the card at 600 steps (B=2, six values of
+# [train] seed, chip_smoke.py --calibrate) mAP@0.3 missed 1.0 for one seed under cuDNN's
+# default algorithms (0.5) and for another under its deterministic ones (0.636); at 1200
+# steps under the default ones all six read 1.0.  So the check trains 1200 steps with the
+# algorithms the train CLI uses
+OVERFIT_STEPS, OVERFIT_SIZE = 1200, 64
 # tests/test_convergence.py's learning check: Tiny on 6 images of one 32² square each
 OVERFIT_INI = """[config]
 root = {root}/artifacts
@@ -2993,11 +3033,13 @@ def overfit_workspace(root: Path) -> list:
     return ["-c", str(ROOT / "config.ini"), str(root / "overfit.ini")]
 
 
-def overfit_check(card: str, device: str = "cuda") -> dict:
-    """tests/test_convergence.py on ``device``: Tiny overfits the 6-image
-    workspace in OVERFIT_STEPS steps at 64² (no augmentation, lr 3e-3, f32)
-    through the cache, train and eval CLIs' code; mAP@0.3 (threshold 0.05)
-    at 64 must be 1.0 (to 1e-9)."""
+def overfit_run(device: str = "cuda", steps: int = OVERFIT_STEPS, seed: int = 0,
+                deterministic: bool = False) -> dict:
+    """tests/test_convergence.py on ``device``: Tiny trained on the 6-image
+    workspace for ``steps`` steps at 64² (no augmentation, lr 3e-3, f32,
+    ``[train] seed``) through the cache and train CLIs' code, under cuDNN's
+    deterministic algorithms or the train CLI's default ones; returns
+    {"map", "ap", "step", "train_s"}: mAP@0.3 (threshold 0.05) at 64."""
     import shutil
 
     from yolojax_torch.cli import make_parser, setup
@@ -3009,24 +3051,36 @@ def overfit_check(card: str, device: str = "cuda") -> dict:
 
     root = GATE_DIR / "overfit"
     shutil.rmtree(root, ignore_errors=True)
-    cfg = overfit_workspace(root)
+    cfg = overfit_workspace(root) + ["-m", f"train/seed={seed}"]
     t0 = time.perf_counter()
-    if cache_main(cfg) != 0 or train_main(cfg + ["--steps", str(OVERFIT_STEPS),
-                                                 "--device", device]) != 0:
-        raise AssertionError("overfit: the cache or train step failed")
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        if cache_main(cfg) != 0 or train_main(cfg + ["--steps", str(steps),
+                                                     "--device", device]) != 0:
+            raise AssertionError("overfit: the cache or train step failed")
+    finally:
+        torch.backends.cudnn.deterministic = False
     train_s = time.perf_counter() - t0
     config = setup(make_parser("overfit eval").parse_args(cfg))
     category, _, model = build(config)
     params, state, meta = load_weights_auto(config, model, None, resume=True, device=device)
     result = run_eval(config, model, params, state, load_cache(config, "test"), OVERFIT_SIZE,
                       config.getint("eval", "batch_size"), category)
+    return {"map": result["map"], "ap": result["ap"], "step": meta.get("step"),
+            "train_s": train_s}
+
+
+def overfit_check(card: str, device: str = "cuda") -> dict:
+    """:func:`overfit_run` under the train CLI's algorithms for OVERFIT_STEPS
+    steps: mAP@0.3 must be 1.0 (to 1e-9)."""
+    run = overfit_run(device)
     log(f"[gate] {card} | overfit (tests/test_convergence.py): Tiny, 6 images, "
-        f"{OVERFIT_SIZE}², {meta.get('step')} steps in {train_s:.1f} s: mAP@0.3 "
-        f"{result['map']:.6f} (required 1.0), per class {result['ap']}")
+        f"{OVERFIT_SIZE}², {run['step']} steps in {run['train_s']:.1f} s: mAP@0.3 "
+        f"{run['map']:.6f} (required 1.0), per class {run['ap']}")
     # 1.0 up to the float rounding of the AP's 11-point sum (1.0000000000000002 on the CPU)
-    if meta.get("step") != OVERFIT_STEPS or abs(result["map"] - 1.0) > 1e-9:
-        raise AssertionError(f"overfit: mAP@0.3 {result['map']} after {meta.get('step')} steps")
-    return {"map": result["map"], "train_s": train_s}
+    if run["step"] != OVERFIT_STEPS or abs(run["map"] - 1.0) > 1e-9:
+        raise AssertionError(f"overfit: mAP@0.3 {run['map']} after {run['step']} steps")
+    return {"map": run["map"], "train_s": run["train_s"]}
 
 
 def gate_phase(card: str) -> tuple[dict, dict]:
@@ -3193,7 +3247,6 @@ def bench_run(env: dict) -> tuple[dict, dict, float]:
     BENCH_ITERS) with its stdout captured and every launch counter set to 0
     just before and read just after; returns (its one JSON line, the
     launches, seconds)."""
-    import contextlib
     import io
     import os
 
@@ -3253,7 +3306,6 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     Without OpenCV the e2e and pipeline runs must refuse, naming cv2.  Then
     the latency run again in BENCH_FRESH_LATENCY processes of its own.
     Returns (launches, the phase's line)."""
-    import contextlib
     import io
     import math
     import shutil
@@ -3344,8 +3396,598 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     return total, result
 
 
+# -- the last entry points: torchrun across nodes, COCO-80 detect, the bench runner -----
+
+NODES_DIR = ROOT / "build" / "chip_smoke_nodes"   # git-ignored: caches, checkpoints, logs
+NODES, NODE_BATCH, NODES_STEPS = 2, 8, 3    # one rank a node on cuda:0, B a rank (the node's)
+NODES_TIMEOUT = 600
+C80_BATCH, C80_ITERS = 64, 3
+BENCH_ALL_JOBS, BENCH_ALL_ITERS = ("LATENCY", "TINY"), 5
+RANK_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "GROUP_RANK")
+# the bench command of (c): tools/bench.py's main, counting its launches
+BENCH_LAUNCHES = [sys.executable, str(ROOT / "chip_smoke.py"), "--bench-launches"]
+
+
+def nodes_args(name: str, *argv) -> list:
+    """The train CLI's argv for phase 17 (``config.ini``'s Darknet-19, VOC,
+    bf16, at SIZE, clip 5, every scalar kept), on the phase's caches, from
+    the device-resident dataset: each rank gathers its contiguous rows of
+    the global index batch, so the ranks' global batch is one process's row
+    for row and each image takes the same augmentation draw.  (The loader
+    gives each node ``order[node::nodes]``, as the JAX package gives each
+    process: across nodes its global batch holds one process's images in
+    another order, so with augmentation on they take other draws.)"""
+    return ["--device", TRAIN_DEVICE, "-m", f"config/root={NODES_DIR}", f"model/name={name}",
+            f"cache/voc_roots={EVAL_DIR / 'VOC2007'}", "data/device_dataset=1",
+            "train/clip=5", "train/prewarm=0",
+            f"train/multi_scale_min={SIZE}", f"train/multi_scale_max={SIZE}",
+            "summary/scalar=1", "summary/histogram=0", "summary/image=0",
+            "save/interval=1e9", *argv]
+
+
+def nodes_workspace() -> int:
+    """Phase 11's 48 PPM images (``EVAL_DIR``) as the ``trainval`` and the
+    ``test`` set, their caches written by ``data/cache.py::cache`` under
+    NODES_DIR; returns the image count."""
+    import shutil
+
+    from yolojax_torch.cli.train import train_parser
+    from yolojax_torch.config import load_config
+    from yolojax_torch.data.cache import cache
+
+    shutil.rmtree(NODES_DIR, ignore_errors=True)
+    sets = EVAL_DIR / "VOC2007" / "ImageSets" / "Main"
+    (sets / "trainval.txt").write_text((sets / "test.txt").read_text())
+    args = train_parser().parse_args(nodes_args("nodes"))
+    built = cache(load_config(args.config, args.modify or ()), phases=("train", "test"))
+    if not len(built["train"]) == len(built["test"]) == EVAL_IMAGES:
+        raise AssertionError(f"nodes: caches of {len(built['train'])} / {len(built['test'])} "
+                             f"images, not {EVAL_IMAGES}")
+    return EVAL_IMAGES
+
+
+def node_rank(spec_path: str) -> None:
+    """One rank of phase 17 (``chip_smoke.py --node-rank SPEC`` under
+    torchrun): start the gloo group from torchrun's environment (NCCL
+    refuses two ranks on one card; ``init_from_env`` takes a group that
+    exists), then run SPEC's ``runs`` in turn, each the train or the eval
+    CLI's ``main`` with every launch counter set to 0 just before and read
+    just after, and a barrier after it (rank 0 writes the checkpoint the
+    eval reads); writes what the parent checks beside SPEC."""
+    import os
+
+    import torch.distributed as dist
+
+    from yolojax_torch.cli.eval import main as eval_main
+    from yolojax_torch.cli.train import main as train_main
+
+    spec = json.loads(Path(spec_path).read_text())
+    env = {k: os.environ.get(k) for k in RANK_ENV}
+    dist.init_process_group("gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+                            f"{os.environ['MASTER_PORT']}", world_size=int(env["WORLD_SIZE"]),
+                            rank=int(env["RANK"]))
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        out = {"env": env}
+        for name, cli, argv, *fault in spec["runs"]:
+            counters = zero_counters()
+            t0 = time.perf_counter()
+            with planted(*fault, rank=int(env["RANK"])), float64_config():
+                rc = {"train": train_main, "eval": eval_main}[cli](argv)
+            out[name] = {"rc": rc, "launches": read_counters(counters) if spec["cuda"] else {},
+                         "seconds": time.perf_counter() - t0}
+            dist.barrier()
+            Path(spec_path).with_name(f"rank{env['RANK']}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def planted(fault: str | None = None, rank: int = 0):
+    """A fault planted in a rank for one run of ``--calibrate``, to read what
+    phase 17 (a)'s bounds make of it: "double_grad" doubles rank 1's
+    gradients before the group averages them; "local_bn" normalises each
+    rank with its own share's batch statistics (BN without its sync)."""
+    from yolojax_torch.models import blocks
+    from yolojax_torch.parallel import collectives, mesh
+
+    saved = mesh.average_grads, blocks.all_reduce_sum
+    if fault == "double_grad" and rank == 1:
+        mesh.average_grads = lambda grads, group: saved[0](
+            {k: {n: 2 * v for n, v in lp.items()} for k, lp in grads.items()}, group)
+    elif fault == "local_bn":
+        blocks.all_reduce_sum = lambda x, group: x * collectives.world(group)
+    elif fault not in (None, "double_grad"):
+        raise ValueError(f"planted: no fault {fault!r}")
+    try:
+        yield
+    finally:
+        mesh.average_grads, blocks.all_reduce_sum = saved
+
+
+@contextlib.contextmanager
+def float64_config():
+    """``[model] dtype`` and ``[transform] dtype`` may say ``float64``, which
+    the port's config does not list, for ``--calibrate``'s float64 runs."""
+    from yolojax_torch import config
+
+    config._DTYPES["float64"] = torch.float64
+    try:
+        yield
+    finally:
+        del config._DTYPES["float64"]
+
+
+def torchrun_nodes(spec: dict) -> list[dict]:
+    """``chip_smoke.py --node-rank`` under NODES launchers of ``python -m
+    torch.distributed.run --nnodes NODES --nproc-per-node 1 --node-rank i``
+    on this host; returns each rank's record, in rank order.  The
+    launchers run in sessions of their own, so a failure or a timeout stops
+    their ranks too."""
+    import importlib.util
+    import os
+    import signal
+
+    from yolojax_torch.parallel.collectives import _free_port
+
+    spec_path = NODES_DIR / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if importlib.util.find_spec("cv2") is None:
+        env["PYTHONPATH"] += os.pathsep + str(EVAL_DIR / "stub")
+    port = _free_port()
+    logs = [NODES_DIR / f"node{i}.log" for i in range(NODES)]
+    procs = []
+    try:
+        for i, log_path in enumerate(logs):
+            with open(log_path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run", "--nnodes", str(NODES),
+                     "--nproc-per-node", "1", "--node-rank", str(i), "--master-addr",
+                     "127.0.0.1", "--master-port", str(port), str(ROOT / "chip_smoke.py"),
+                     "--node-rank", str(spec_path)],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        deadline = time.monotonic() + NODES_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    if rcs != [0] * NODES:
+        for log_path in logs:
+            log(log_path.read_text()[-4000:])
+        raise AssertionError(f"nodes: the torchrun launchers exited {rcs}")
+    return [json.loads((NODES_DIR / f"rank{r}.json").read_text()) for r in range(NODES)]
+
+
+def parity_recipe(name: str, *argv) -> list:
+    """(a)'s f32 run: ``nodes_args`` in float32 with phase 13 (a)'s sgd
+    (``tests/test_torch_train_step.py``'s: BN-γ sparsity 0.01, a milestone
+    at step 2), under which ``DIST_PARITY`` was set.
+
+    What ``--calibrate`` read on the H100 at SIZE, B=NODE_BATCH a rank: under
+    this sgd the params' change lies 1.27e-2 from one process's.  Under
+    config.ini's recipe it lies 2.45e-2 away in float32, and 3.6e-6 in
+    float64, where the components' gap stays near 8e-8 at each step while in
+    float32 it grows 2.7e-6 → 1.2e-4 → 3.5e-3: float32 rounding (B=8 and
+    B=16 sums) that the recipe's full-rate steps amplify, not a fault of the
+    split.  Planted faults read far outside the bounds: a rank whose
+    gradient is doubled 0.34 on the change (0.42 at step 1), BN without its
+    sync 1.18 (0.31 at step 1)."""
+    return nodes_args(name, "-m", "model/dtype=float32", "transform/dtype=float32",
+                      "train/milestones=2", "train/gamma=0.1", "train/sparsity=0.01", *argv)
+
+
+def one_process(argv: list) -> tuple[dict, dict]:
+    """``Train`` in this process on the train CLI's ``argv`` under
+    deterministic cuDNN: ({rows, params, state, trace, seen,
+    steps_per_epoch}, the start params), on the CPU."""
+    from yolojax_torch.cli import setup
+    from yolojax_torch.cli.train import Train, train_parser
+
+    cpu = lambda tree: {k: {n: v.cpu() for n, v in lp.items()} for k, lp in tree.items()}
+    args = train_parser().parse_args(argv)
+    config = setup(args)
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = Train(args, config)
+        start = cpu({k: {n: v.clone() for n, v in lp.items()} for k, lp in one.params.items()})
+        one(max_steps=args.steps)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return ({"rows": scalar_rows(config), "params": cpu(one.params), "state": cpu(one.state),
+             "trace": cpu(one.opt_state["trace"]), "seen": one.seen,
+             "steps_per_epoch": one.steps_per_epoch}, start)
+
+
+def nodes_checkpoint(argv: list) -> tuple[dict, dict]:
+    """The last checkpoint of the ranks' run on the train CLI's ``argv``
+    (rank 0's): ({rows, params, state, trace}, its meta)."""
+    from yolojax_torch.cli import setup
+    from yolojax_torch.cli.common import build, load_weights_auto
+    from yolojax_torch.cli.train import train_parser
+    from yolojax_torch.config import get_model_dir
+    from yolojax_torch.utils import checkpoint as ckpt
+
+    config = setup(train_parser().parse_args(argv))
+    path = Path(get_model_dir(config)) / f"{NODES_STEPS}.npz"
+    params, state, meta = load_weights_auto(config, build(config)[2], str(path))
+    trace = {k: {n: torch.from_numpy(v) for n, v in lp.items()}
+             for k, lp in ckpt.load(str(path), ("opt",))[0]["opt"]["trace"].items()}
+    return {"rows": scalar_rows(config), "params": params, "state": state, "trace": trace}, meta
+
+
+def step_gaps(got_rows: list, want_rows: list) -> list:
+    """The components' and grad_norm's largest relative gap at each step."""
+    return [max(abs(g[k] - w[k]) / abs(w[k]) for k in COMPONENTS)
+            for g, w in zip(got_rows, want_rows)]
+
+
+def nodes_run(card: str) -> tuple[dict, dict]:
+    """(a) the train CLI, then the eval CLI, launched by torchrun as two
+    nodes of one rank each on ``cuda:0``: torchrun's environment on each
+    rank; the bf16 run (config.ini's recipe) every loss finite, ``step`` and
+    ``seen``, no kernel launched; the f32 run's rank-0 checkpoint against
+    ``Train`` in this process at the global batch (the same start, data and
+    draws, deterministic cuDNN, TF32 off) within ``DIST_PARITY``, and that
+    run against itself run again for scale; the eval of the bf16 checkpoint
+    split over the nodes, one fused decode+NMS a batch of each rank's
+    share.  Returns (launches, numbers)."""
+    from yolojax_torch.cli import setup
+    from yolojax_torch.cli.train import train_parser
+    from yolojax_torch.config import get_model_dir
+    from yolojax_torch.utils import checkpoint as ckpt
+
+    images = nodes_workspace()
+    global_batch = NODE_BATCH * NODES
+    steps = ["--batch", str(NODE_BATCH), "--steps", str(NODES_STEPS)]
+    spec = {"cuda": TRAIN_DEVICE == "cuda", "runs": [
+        ["train", "train", nodes_args("nodes", *steps)],
+        ["parity", "train", parity_recipe("nodes-f32", *steps)],
+        ["eval", "eval", ["-m", f"config/root={NODES_DIR}", "model/name=nodes",
+                          f"cache/voc_roots={EVAL_DIR / 'VOC2007'}", "--size", str(SIZE),
+                          "--batch", str(global_batch), "--device", TRAIN_DEVICE,
+                          "--results", str(NODES_DIR / "dets.jsonl")]]]}
+    t0 = time.perf_counter()
+    ranks = torchrun_nodes(spec)
+    ranks_s = time.perf_counter() - t0
+    batches = -(-EVAL_IMAGES // global_batch)
+    want_launches = {"train": per_batch(), "parity": per_batch(),
+                     "eval": per_batch(postprocess_fused=batches)}
+    for r, rec in enumerate(ranks):
+        want_env = {"RANK": str(r), "LOCAL_RANK": "0", "WORLD_SIZE": str(NODES),
+                    "LOCAL_WORLD_SIZE": "1", "GROUP_RANK": str(r)}
+        if rec["env"] != want_env or any(rec[k]["rc"] != 0 for k in want_launches):
+            raise AssertionError(f"nodes: rank {r} saw {rec['env']} (expected {want_env}), "
+                                 f"{rec}")
+        if spec["cuda"] and any(rec[k]["launches"] != v for k, v in want_launches.items()):
+            raise AssertionError(f"nodes: rank {r} launched {rec}; expected {want_launches}")
+
+    seen = global_batch * NODES_STEPS
+    config = setup(train_parser().parse_args(nodes_args("nodes")))
+    rows = [r for r in scalar_rows(config) if "total" in r]   # the eval adds its eval/mAP row
+    _, meta = ckpt.load(str(Path(get_model_dir(config)) / f"{NODES_STEPS}.npz"), ())
+    bad = [(r["step"], k) for r in rows for k in COMPONENTS if not np.isfinite(r[k])]
+    if len(rows) != NODES_STEPS or bad or meta != {"step": NODES_STEPS, "seen": seen}:
+        raise AssertionError(f"nodes: the bf16 run wrote {len(rows)} rows, non-finite {bad}, "
+                             f"meta {meta}")
+
+    one_argv = lambda name: parity_recipe(name, "--batch", str(global_batch), "--steps",
+                                          str(NODES_STEPS))
+    want, start = one_process(one_argv("nodes-f32-one"))
+    again, _ = one_process(one_argv("nodes-f32-one-again"))
+    got, f32_meta = nodes_checkpoint(parity_recipe("nodes-f32"))
+    errs = parity_errs(got, want, start)
+    again = parity_errs(again, want, start)
+    fmt = lambda e: (f"components and grad_norm max rel diff {e['first']:.3g} at step 1, "
+                     f"{e['later']:.3g} after; params' change {e['change']:.3g}, momentum "
+                     f"{e['trace']:.3g}, BN state {e['state']:.3g}")
+    log(f"[nodes] (a) {card} | python -m torch.distributed.run --nnodes {NODES} "
+        f"--nproc-per-node 1 chip_smoke.py --node-rank: the train CLI on {NODES} nodes of one "
+        f"rank (gloo, cuda:0), B={NODE_BATCH} a rank, {NODES_STEPS} steps of Darknet-19 at "
+        f"{SIZE}, the device-resident dataset: bf16 (config.ini's recipe) total "
+        f"{rows[0]['total']:.4g} → {rows[-1]['total']:.4g}, every loss finite, seen "
+        f"{meta['seen']}; f32 (TF32 off, deterministic cuDNN) against one process at "
+        f"B={global_batch}: {fmt(errs)} (bounds {DIST_PARITY}); seen {f32_meta.get('seen')} "
+        f"(one process {want['seen']}), {want['steps_per_epoch']} steps an epoch of {images} "
+        f"images; {ranks_s:.1f} s for both launches with start-up")
+    log(f"[nodes] (a) for scale, the one-process run against itself run again: {fmt(again)}")
+    if ({len(got["rows"]), len(want["rows"])} != {NODES_STEPS} or want["seen"] != seen
+            or f32_meta.get("seen") != seen or any(errs[k] > DIST_PARITY[k] for k in errs)):
+        raise AssertionError(f"nodes (a): {len(got['rows'])} / {len(want['rows'])} scalar rows, "
+                             f"meta {f32_meta}, seen {want['seen']} (expected {seen}), {errs}")
+
+    launches = dict.fromkeys(KERNELS, 0)
+    for rec in ranks:
+        launches = {k: launches[k] + rec["eval"]["launches"].get(k, 0) for k in KERNELS}
+    printed = [line for line in (NODES_DIR / "node0.log").read_text().splitlines()
+               if line.startswith("mAP = ")]
+    dets = (NODES_DIR / "dets.jsonl").read_text().splitlines()
+    if len(printed) != 1 or not dets:
+        raise AssertionError(f"nodes: the eval printed {printed}, {len(dets)} detections")
+    log(f"[nodes] (a) the eval CLI on the same {NODES} nodes, the bf16 checkpoint, "
+        f"{global_batch // NODES} images a rank of each batch of {global_batch}: "
+        f"'{printed[0]}', {len(dets)} detections; launches per rank "
+        f"{[rec['eval']['launches'] for rec in ranks]} (one fused a batch); seconds a rank "
+        f"{[{k: round(rec[k]['seconds'], 1) for k in want_launches} for rec in ranks]}")
+    return launches, {**errs, "one_process_again": again, "seen": meta["seen"],
+                      "bf16_total": [rows[0]["total"], rows[-1]["total"]],
+                      "eval": printed[0], "seconds": ranks_s}
+
+
+def c80_vs_plain() -> dict:
+    """(b)'s kernels against their plain versions at the shape the tool gives
+    them: B=C80_BATCH images through the 80-class Darknet-19 with the
+    weights' own objectness logit (about 0, a dense head where hundreds of
+    thousands of boxes are kept), bf16, at SIZE.  The fused kernel on the raw
+    head against ``ops/postprocess.py::postprocess_raw`` (``compare``: keep
+    identical, conf to rtol 2e-5, corners to 1e-5); nms_select on the
+    decoded head against ``ops/nms.py::nms_select`` (idx, conf, valid
+    identical) and ``postprocess_nms`` against ``postprocess``.  These
+    comparison launches (one fused, two nms_select) are counted in their own
+    window and kept out of the phase's.  Returns each kernel's largest abs
+    error."""
+    from yolojax_torch.kernels.nms import nms_select, postprocess_nms
+    from yolojax_torch.kernels.postprocess_fused import postprocess_fused
+    from yolojax_torch.ops.decode import decode
+    from yolojax_torch.ops.nms import nms_select as nms_plain
+    from yolojax_torch.ops.postprocess import postprocess, postprocess_raw
+    from yolojax_torch.tools import c80_fusedpost as c80
+
+    model, folded, _ = c80.setup(TRAIN_DEVICE, objectness=None)
+    point = (c80.THRESHOLD, c80.OVERLAP, c80.TOPK)
+    with torch.inference_mode():
+        raw = model.apply_folded(folded, seeded_images(80, C80_BATCH))
+        anchors = torch.as_tensor(model.anchors, dtype=torch.float32, device=raw.device)
+        det = decode(raw, anchors)
+        boxes = (det.yx_min[:, None], det.yx_max[:, None], det.conf.transpose(1, 2))
+        counters = zero_counters()
+        fused, picks = postprocess_fused(raw, anchors, *point), nms_select(*boxes, *point)
+        separate = postprocess_nms(det, *point)
+        launches = read_counters(counters)
+        plain_raw, plain_picks = postprocess_raw(raw, anchors, *point), nms_plain(*boxes, *point)
+        plain = postprocess(det, *point)
+    want = per_batch(postprocess_fused=1, nms_select=2)
+    if launches != want:
+        raise AssertionError(f"c80 vs plain: launched {launches}, expected {want}")
+    what = f"({C80_BATCH},{raw.shape[1]},{raw.shape[2]},{raw.shape[3]}) bf16 dense"
+    err = {"postprocess_fused": compare(fused, plain_raw, c80.CLASSES, f"c80 fused {what}")}
+    for g, v, part in zip(picks, plain_picks, ("idx", "conf", "valid")):
+        if g.shape != v.shape or g.dtype != v.dtype or not torch.equal(g, v):
+            raise AssertionError(f"c80 nms_select {what}: {part} differs from the plain version")
+    err["nms_select"] = compare(separate, plain, c80.CLASSES, f"c80 postprocess_nms {what}")
+    log(f"[c80] {what}: the fused kernel matches postprocess_raw ({int(plain_raw.keep.sum())} "
+        f"kept), nms_select is identical to the plain version ({int(plain_picks[2].sum())} "
+        f"picks), postprocess_nms matches postprocess; longest compacted row "
+        f"{compacted(det)} of {det.conf.shape[1]}; max abs err {err}")
+    return err
+
+
+def c80_run(card: str) -> tuple[dict, dict]:
+    """(b) ``python -m yolojax_torch.tools.c80_fusedpost``'s ``main`` in this
+    process at B=C80_BATCH, C80_ITERS calls a route: one JSON line with the
+    card, both routes' times, bounds and device times; every call of the
+    fused route launches one postprocess_fused and no nms_select, every
+    call of the separate route the reverse; with every launch counter set
+    to 0 just before and read just after, the whole run launched what its
+    calls and its kernel timings call for; then a CUDA graph capture of one
+    call of each route holds exactly one kernel of its post-processing.
+    Returns (launches, numbers)."""
+    import io
+
+    from yolojax_torch.tools import c80_fusedpost
+
+    counters = zero_counters()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = c80_fusedpost.main(["--batches", str(C80_BATCH), "--iters", str(C80_ITERS),
+                                 "--size", str(SIZE), "--device", TRAIN_DEVICE])
+    launches = read_counters(counters)
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    row = line["batches"][str(C80_BATCH)]
+    # a route's calls: first, warm, C80_ITERS timed; its post kernel alone: one for the
+    # bound, 3 warm + 7 timed, and on a card 1 + 5 profiled (and one between CUDA
+    # events where the profiler recorded none); one on the dense head
+    per_call = {"fused": {"postprocess_fused": 1, "nms_select": 0},
+                "separate": {"postprocess_fused": 0, "nms_select": 1}}
+    calls = {c80_fusedpost.KERNELS[r]: 2 + C80_ITERS + 1 + 10 + 1 + (
+        6 + row[r]["post_device_how"].startswith("CUDA events") if TRAIN_DEVICE == "cuda" else 0)
+        for r in per_call}
+    want = per_batch(**calls)
+    dense = row["same_boxes_init_objectness"]
+    if (rc != 0 or line["device"] != card or launches != want
+            or any(row[r]["launches_per_call"] != per_call[r] for r in per_call)
+            or not all(row[r]["ms"] > 0 and row[r]["bound_ms"] > 0 for r in per_call)
+            or not (dense["same_keep"] and dense["kept_fused"] > 0)):
+        raise AssertionError(f"c80: exit {rc}, line {line}, launches {launches} (expected {want})")
+
+    from yolojax_torch.kernels.nms import postprocess_nms
+    from yolojax_torch.models.inference import Inference
+
+    # a graph capture of one fused call, and of the separate route's post stage on
+    # its decoded head (the decode copies the grid's size to the card, which a
+    # capture refuses)
+    model, folded, routes = c80_fusedpost.setup(TRAIN_DEVICE)
+    x = seeded_images(80, C80_BATCH)
+    with torch.inference_mode():
+        det = Inference(model)(folded, x)
+    one_call = {"fused": lambda: routes["fused"](folded, x),
+                "separate": lambda: postprocess_nms(det, c80_fusedpost.THRESHOLD,
+                                                    c80_fusedpost.OVERLAP, c80_fusedpost.TOPK)}
+    for route, call in one_call.items():
+        with torch.inference_mode():
+            call()
+            work = captured_work(call)
+        mine = {k: sum(k in w for w in work) for k in ("postprocess_fused", "nms_select")}
+        if mine != per_call[route]:
+            raise AssertionError(f"c80: one {route} call put {mine} on the stream, expected "
+                                 f"{per_call[route]}")
+        log(f"[c80] one {route} call (B={C80_BATCH}) in a CUDA graph capture: {len(work)} "
+            f"nodes, {mine}")
+    del model, folded, routes, det
+    for route in per_call:
+        r = row[route]
+        log(f"[c80] {card} | B={C80_BATCH}, 80 classes, {SIZE}, bf16, {route}: first call "
+            f"{r['first_s']:.2f} s, {r['ms']:.2f} ms = {r['img_per_s']:.1f} img/s over "
+            f"{C80_ITERS} calls; {r['post_kernel']} alone {r['post_ms']:.4f} ms, device "
+            f"{r['post_device_us']} us, bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+    log(f"[c80] same boxes: {row['same_boxes']}; with the init's objectness {dense}; "
+        f"launches {launches}")
+    return launches, {"batch": C80_BATCH, "row": row, "max_abs_err": c80_vs_plain()}
+
+
+CALIBRATE_SEEDS = 6
+CALIBRATE_FAULTS = ("double_grad", "local_bn")
+
+
+def calibrate(card: str) -> None:
+    """``chip_smoke.py --calibrate``: the readings two of the run's bounds
+    rest on; checks nothing.  (1) Phase 17 (a): the two torchrun nodes'
+    train CLI (B=NODE_BATCH a rank, NODES_STEPS steps at SIZE, deterministic
+    cuDNN, TF32 off) against ``Train`` in this process at the global batch,
+    under config.ini's recipe in float32 and in float64 and under the sgd of
+    ``parity_recipe``, and under that sgd with each planted fault
+    (``planted``) against the faultless one process; ``parity_errs`` and the
+    components' gap at each step.  (2) Phase 14's overfit: CALIBRATE_SEEDS
+    values of ``[train] seed`` for half OVERFIT_STEPS (the reference
+    test's 600) and OVERFIT_STEPS under the default algorithms and for half
+    under the deterministic ones.  Prints one JSON line."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eval_workspace()
+    nodes_workspace()
+    global_batch = NODE_BATCH * NODES
+    mods = {"cfg-f32": ["-m", "model/dtype=float32", "transform/dtype=float32"],
+            "cfg-f64": ["-m", "model/dtype=float64", "transform/dtype=float64"]}
+    recipe = {"cfg-f32": lambda name, *a: nodes_args(name, *mods["cfg-f32"], *a),
+              "cfg-f64": lambda name, *a: nodes_args(name, *mods["cfg-f64"], *a),
+              "sgd-f32": parity_recipe}
+    runs = [[name, "train", fn(name, "--batch", str(NODE_BATCH), "--steps", str(NODES_STEPS))]
+            for name, fn in recipe.items()]
+    runs += [[f"sgd-f32-{fault}", "train", parity_recipe(
+        f"sgd-f32-{fault}", "--batch", str(NODE_BATCH), "--steps", str(NODES_STEPS)), fault]
+        for fault in CALIBRATE_FAULTS]
+    t0 = time.perf_counter()
+    torchrun_nodes({"cuda": TRAIN_DEVICE == "cuda", "runs": runs})
+    out = {"card": card, "ranks_s": time.perf_counter() - t0, "parity": {}, "overfit": {}}
+    ones = {}
+    for name, fn in recipe.items():
+        with float64_config():
+            ones[name] = one_process(fn(f"{name}-one", "--batch", str(global_batch), "--steps",
+                                        str(NODES_STEPS)))
+            got, _ = nodes_checkpoint(fn(name))
+        (want, start) = ones[name]
+        out["parity"][name] = {**parity_errs(got, want, start),
+                               "steps": step_gaps(got["rows"], want["rows"])}
+    for fault in CALIBRATE_FAULTS:
+        got, _ = nodes_checkpoint(parity_recipe(f"sgd-f32-{fault}"))
+        want, start = ones["sgd-f32"]
+        out["parity"][f"sgd-f32-{fault}"] = {**parity_errs(got, want, start),
+                                             "steps": step_gaps(got["rows"], want["rows"])}
+    for name, errs in out["parity"].items():
+        log(f"[calibrate] {card} | nodes (a) {name}: {errs} (bounds {DIST_PARITY})")
+
+    for steps, deterministic in ((OVERFIT_STEPS // 2, False), (OVERFIT_STEPS, False),
+                                 (OVERFIT_STEPS // 2, True)):
+        key = f"{steps} {'deterministic' if deterministic else 'default'}"
+        out["overfit"][key] = []
+        for seed in range(CALIBRATE_SEEDS):
+            run = overfit_run(TRAIN_DEVICE, steps, seed, deterministic)
+            out["overfit"][key].append({"seed": seed, "map": run["map"],
+                                        "ap": list(run["ap"].values()),
+                                        "train_s": run["train_s"]})
+            log(f"[calibrate] {card} | overfit {key}, seed {seed}: mAP@0.3 {run['map']:.6f}, "
+                f"per class {run['ap']}, {run['train_s']:.1f} s")
+    print(json.dumps({"calibrate": out}), flush=True)
+
+
+def counted_bench() -> None:
+    """``chip_smoke.py --bench-launches``: ``tools/bench.py``'s ``main`` (its
+    one JSON line on stdout) with every launch counter set to 0 just before
+    and read just after, the counts as a JSON line on stderr, which
+    ``tools/bench_all.py`` folds into the artifact's diagnostics."""
+    from yolojax_torch.tools import bench
+
+    counters = zero_counters()
+    bench.main()
+    print(json.dumps({"launches": read_counters(counters)}), file=sys.stderr, flush=True)
+
+
+def bench_all_run(card: str) -> tuple[dict, dict]:
+    """(c) ``python -m yolojax_torch.tools.bench_all --only LATENCY TINY`` in
+    this process at BENCH_ITERS=BENCH_ALL_ITERS, each job's bench run as
+    ``chip_smoke.py --bench-launches`` (the bench counting its launches):
+    one artifact a job with the card and the launches, one fused decode+NMS
+    a detect call (2 warm calls and max(iters, 100) at B=1, 2 + iters for
+    Tiny).  Returns (launches, numbers)."""
+    import io
+    import os
+
+    from yolojax_torch.tools import bench_all
+
+    out_dir = NODES_DIR / "bench_torch"
+    saved = (bench_all.BENCH, bench_all.OUT_DIR, os.environ.get("BENCH_ITERS"))
+    bench_all.BENCH = BENCH_LAUNCHES
+    bench_all.OUT_DIR = out_dir
+    os.environ["BENCH_ITERS"] = str(BENCH_ALL_ITERS)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = bench_all.main(["--round", "smoke", "--only", *BENCH_ALL_JOBS])
+    finally:
+        bench_all.BENCH, bench_all.OUT_DIR = saved[:2]
+        os.environ.pop("BENCH_ITERS")
+        if saved[2] is not None:
+            os.environ["BENCH_ITERS"] = saved[2]
+    calls = {"LATENCY": BENCH_WARM_CALLS + max(BENCH_ALL_ITERS, 100),
+             "TINY": BENCH_WARM_CALLS + BENCH_ALL_ITERS}
+    launches, numbers = dict.fromkeys(KERNELS, 0), {}
+    for tag in BENCH_ALL_JOBS:
+        path = out_dir / f"BENCH_{tag}_rsmoke.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        got = [d["launches"] for d in rec.get("diagnostics", []) if "launches" in d]
+        if (rc != 0 or rec.get("device") != card or got != [per_batch(postprocess_fused=
+                                                                        calls[tag])]):
+            raise AssertionError(f"bench_all {tag}: exit {rc}, artifact {rec}; printed "
+                                 f"{printed.getvalue()[-2000:]}")
+        launches = {k: launches[k] + got[0][k] for k in KERNELS}
+        numbers[tag] = {"metric": rec["metric"], "value": rec["value"]}
+        log(f"[bench_all] {tag}: {rec['metric']} = {rec['value']} {rec['unit']} "
+            f"(BENCH_ITERS={BENCH_ALL_ITERS}) -> {path.relative_to(ROOT)}; launches {got[0]}")
+    return launches, numbers
+
+
+def nodes_phase(card: str) -> tuple[dict, dict]:
+    """Phase 17: (a) the train and eval CLIs launched by torchrun as two
+    nodes, (b) COCO-80 detect fused against separate, (c) the bench runner.
+    Returns (launches, the phase's line)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    nodes_launches, nodes = nodes_run(card)
+    c80_launches, c80 = c80_run(card)
+    runner_launches, bench_all_numbers = bench_all_run(card)
+    result = {"card": card, "nodes": nodes, "c80": c80, "bench_all": bench_all_numbers,
+              "seconds": time.perf_counter() - t0}
+    log(f"[nodes] phase 17 took {result['seconds']:.1f} s")
+    return ({k: nodes_launches[k] + c80_launches[k] + runner_launches[k] for k in KERNELS},
+            result)
+
+
 def main() -> None:
     args = sys.argv[1:]
+    if args[:1] == ["--node-rank"] and len(args) == 2:
+        node_rank(args[1])
+        return
+    if args == ["--bench-launches"]:
+        counted_bench()
+        return
+    if args == ["--calibrate"]:
+        calibrate(check_device()[1])
+        return
     if args[:1] == ["--profile"] and len(args) <= 2:
         path = args[1] if len(args) == 2 else "mobilenet"
         if path not in PROFILE_PATHS:
@@ -3395,6 +4037,8 @@ def main() -> None:
     gate_launches, gate_result = gate_phase(card)
     prune_launches, prune_result = prune_phase(card)
     bench_launches, bench_result = bench_phase(card)
+    nodes_launches, nodes_result = nodes_phase(card)
+    err = {k: max(e, nodes_result["c80"]["max_abs_err"].get(k, 0.0)) for k, e in err.items()}
     log(f"[done] checks and times took {time.perf_counter() - t0:.1f} s after the build")
 
     # launches: summed over the four main paths' runs (3 batches each) and the
@@ -3407,7 +4051,7 @@ def main() -> None:
     # outputs), reorg_s2d fused with c21's epilogue and the concat
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
              eval_launches, deploy_launches, dist_launches, gate_launches, prune_launches,
-             bench_launches)
+             bench_launches, nodes_launches)
     b = TIME_BATCHES[0]
     fused = dark_t[b]
     times = {"postprocess_fused": {"ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
@@ -3429,6 +4073,7 @@ def main() -> None:
     print(json.dumps({"gate": gate_result}), flush=True)
     print(json.dumps({"prune_gate": prune_result}), flush=True)
     print(json.dumps({"bench": bench_result}), flush=True)
+    print(json.dumps({"nodes": nodes_result}), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"yolojax_torch/csrc/{sources[k][0]}",
          "replaces": sources[k][1], "launches": sum(p[k] for p in paths),

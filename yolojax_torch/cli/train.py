@@ -37,11 +37,16 @@ of nodes; an epoch is ``len(dataset) // batch_size`` steps and ``seen``
 grows by the global batch, as in the JAX package.  Where the JAX package
 shrinks its mesh until the batch splits, a rank cannot be left idle, so a
 batch that does not divide over the node's ranks raises a ``ValueError``.
-Each rank's loader feeds its disjoint shard of the seeded epoch
-(``Loader(shard=(rank, world))``; the device dataset gathers the rank's rows
-of each global index batch); the augmentation's draws are made for the
-global batch and each rank applies its own rows, so the ranks together see
-the pixels one process would see on the global batch; the step averages
+Each node's loader shard is its disjoint share of the seeded epoch, as a
+JAX process's is (``order[node::nodes]``), and each rank of the node takes
+its contiguous rows of every node batch, as the JAX process's chips do
+(``Loader(shard=(node, nodes), part=(local rank, local_world))``); the
+device dataset gathers each rank's contiguous rows of every global index
+batch.  So the global batch is, row for row, what the JAX package
+assembles from as many processes (on one node, one process's batch), and
+each image takes the augmentation draw of its row (the draws are made for
+the global batch, each rank applying its own rows): on one node the ranks
+see the pixels one process would see on the global batch; the step averages
 over the group (``parallel/mesh.py``); ``seen`` counts the global batch.
 Only rank 0 writes checkpoints, summaries, box images and profiles: the
 ranks of one machine share its disk, where the JAX package's processes each
@@ -153,9 +158,14 @@ class Train:
                              "ranks of a node: make it a multiple of LOCAL_WORLD_SIZE")
         self.batch_size = node_batch // local    # this rank's
         shard = (rank(self.group), self.world)
+        if self.world % local:
+            raise ValueError(f"{self.world} ranks do not make whole nodes of {local}")
+        # torchrun numbers the ranks node by node: this rank's node and place in it
+        node, place = divmod(shard[0], local)
         self.loader = Loader(dataset, self.batch_size,
                              workers=config.getint("data", "workers", fallback=3),
-                             seed=self.seed, shard=shard)
+                             seed=self.seed, shard=(node, self.world // local),
+                             part=(place, local))
         self.steps_per_epoch = len(dataset) // node_batch
         self.device_data = None
         if config.getboolean("data", "device_dataset", fallback=False):

@@ -3,8 +3,11 @@
 :class:`Loader` is the JAX package's: a thread pool decodes (cv2 releases
 the GIL) and collates shuffled batches into a bounded queue; the shuffle
 draws from ``np.random.default_rng(seed)``, so a seed gives the JAX loader's
-batch order, and ``shard=(index, count)`` gives rank ``index`` of ``count``
-its disjoint share of every epoch, as the JAX loader gives each process.
+batch order, and ``shard=(index, count)`` gives node ``index`` of ``count``
+its disjoint share of every epoch, as the JAX loader gives each process;
+``part=(index, count)`` then gives each of the node's ranks its contiguous
+rows of every node batch, as the JAX process splits its batch over its
+chips.
 The batches are size-agnostic host canvases; the train loop picks each
 step's input size and runs the augmentation on the device.
 
@@ -33,10 +36,13 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, *, workers: int = 3, seed: int = 0,
                  shuffle: bool = True, drop_last: bool = True, depth: int = 3,
-                 shard: tuple[int, int] = (0, 1)):
+                 shard: tuple[int, int] = (0, 1), part: tuple[int, int] = (0, 1)):
         """``shard=(index, count)`` keeps ``order[index::count]`` of each
         epoch's seeded shuffle: every rank draws the same order, so the
-        shards are disjoint and together the whole epoch."""
+        shards are disjoint and together the whole epoch.  ``part=(index,
+        count)`` then keeps, of each ``count · batch_size`` rows of the
+        shard (a node's batch), rows ``[index · batch_size, (index + 1) ·
+        batch_size)``, and drops the last node batch that is not whole."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.workers = max(1, workers)
@@ -44,6 +50,7 @@ class Loader:
         self.drop_last = drop_last
         self.depth = depth
         self.shard = shard
+        self.part = part
         self.rng = np.random.default_rng(seed)
 
     def _epoch_order(self):
@@ -51,7 +58,14 @@ class Loader:
         if self.shuffle:
             self.rng.shuffle(order)
         index, count = self.shard
-        return order[index::count] if count > 1 else order
+        if count > 1:
+            order = order[index::count]
+        index, count = self.part
+        if count > 1:
+            node_batch = count * self.batch_size
+            whole = len(order) // node_batch * node_batch
+            order = order[:whole].reshape(-1, count, self.batch_size)[:, index].reshape(-1)
+        return order
 
     def _batches(self, order):
         b = self.batch_size

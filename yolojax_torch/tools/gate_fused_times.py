@@ -31,48 +31,11 @@ import os
 import numpy as np
 import torch
 
+from .kernel_timing import bound, decode_nms_ops, device_us, event_ms, nbytes
 from .synth_gate import REPO, gate_parser
 
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SIZES = (416, 608)
 REPS = 8
-
-
-def _event_ms(fn, reps: int = REPS, warmup: int = 3) -> list[float]:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return out
-
-
-def _device_us(fn, calls: int = 20) -> tuple[float, str]:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "postprocess_fused" in e.name]
-    if times:
-        return float(np.median(times)), f"profiler, median of {len(times)} of {calls} calls"
-    ms = _event_ms(fn, reps=1, warmup=0)   # one timed call after the profiled ones
-    return ms[0] * 1e3, "CUDA events around one call: the profiler recorded none"
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def main(argv=None) -> int:
@@ -125,7 +88,7 @@ def main(argv=None) -> int:
             times = {"plain": [], "kernel": []}
             for name, fn in (("plain", plain), ("kernel", kernel), ("kernel", kernel),
                              ("plain", plain)):
-                times[name] += _event_ms(fn)
+                times[name] += event_ms(fn, REPS)
             res = kernel()
             want = plain()
             same = bool(torch.equal(res.keep, want.keep))
@@ -133,16 +96,13 @@ def main(argv=None) -> int:
             longest = int((det.conf > threshold).sum(1).max().item())
             n, c = det.conf.shape[1], det.conf.shape[2]
             picks = int(res.keep.sum())
-            ops = raw.shape[0] * n * (3 * c + 20) + picks * n * 16
-            by_bytes = _nbytes(raw, anchors, *res) / PEAK_BYTES * 1e3
-            by_ops = ops / PEAK_F32 * 1e3
-            dev, how = _device_us(kernel)
+            dev, how = device_us(kernel, "postprocess_fused", calls=20)
         out["heads"][str(size)] = {
             "shape": list(raw.shape), "dtype": str(raw.dtype).replace("torch.", ""),
             "ms": float(np.median(times["kernel"])), "plain_ms": float(np.median(times["plain"])),
             "device_us": dev, "device_how": how, "picks": picks, "longest_row": longest,
-            "keep_equal_plain": same, "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            "keep_equal_plain": same,
+            **bound(nbytes(raw, anchors, *res), decode_nms_ops(n, picks, raw.shape[0], c))}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
