@@ -287,3 +287,27 @@ def test_train_cli_on_two_ranks_matches_one_process(workspace):
     (got, meta), (want, want_meta) = _trained(root, "ranks"), _trained(root, "one")
     assert meta == want_meta == {"step": 3, "seen": 6}
     _assert_same_trees(got, want, exact=False)
+
+
+def test_train_cli_profile_window_logs_each_phase(workspace, tmp_path, caplog):
+    """``--profile DIR``: the Chrome trace of steps 11-20 carries the train
+    step's spans, and the window's end logs the median host ms a step of
+    each of its phases (``cli/train.py::step_phases``)."""
+    import logging
+
+    from yolojax_torch.cli.train import main
+
+    _, cfg = workspace
+    out = tmp_path / "profile"
+    with caplog.at_level(logging.INFO, logger="yolojax_torch.cli.train"):
+        assert main(cfg + ["--device", "cpu", "--steps", "21", "--profile", str(out), "-m",
+                           "model/name=profiled", "train/prewarm=0"]) == 0
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("host ms a step in the window")]
+    assert len(lines) == 1
+    phases = dict(item.rsplit(" ", 1) for item in lines[0].split(": ", 1)[1].split(", "))
+    assert list(phases) == ["augment", "forward", "loss", "backward", "optimizer"]
+    assert all(float(v) > 0 for v in phases.values())
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    steps = [e for e in events if e.get("name") == "yolojax_torch.train_step"]
+    assert len(steps) == 10 and all(e.get("cat") == "user_annotation" for e in steps)

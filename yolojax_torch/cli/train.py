@@ -52,6 +52,11 @@ Only rank 0 writes checkpoints, summaries, box images and profiles: the
 ranks of one machine share its disk, where the JAX package's processes each
 write their own.  ``-r`` loads on every rank.
 
+``--profile DIR`` writes a ``torch.profiler`` trace of steps 11-20
+(``trace.json``, which carries the step's spans of ``utils/trace.py``) and
+the profiler's op table (``ops.txt``), and logs the median host ms a step of
+each phase of the step (``yolojax_torch.train.*``) over that window.
+
 The RSS watchdog checkpoints and exec-restarts the process with ``-r`` when
 its resident memory passes ``[train] rss_restart_fraction`` of the host's.
 Across ranks it logs and does not restart, as for an in-process caller: one
@@ -78,6 +83,7 @@ from ..ops.loss import LossConfig
 from ..parallel.collectives import init_from_env, local_world, rank, world
 from ..parallel.mesh import batch_slice, loss_weights_from_config, make_train_step
 from ..utils import checkpoint as ckpt
+from ..utils import trace
 from ..utils.metrics import Meter, Summary
 from ..utils.train import build_optimizer, with_frozen
 from ..utils.visualize import draw_boxes
@@ -345,6 +351,7 @@ class Train:
                             torch.profiler.ProfilerActivity.CPU,
                             *([torch.profiler.ProfilerActivity.CUDA]
                               if self.device.type == "cuda" else [])])
+                        trace.reset()
                         profiler.start()
                     elif self.step == 20 and profiler is not None:
                         self._sync()
@@ -401,6 +408,22 @@ class Train:
         with open(os.path.join(self.profile_dir, "ops.txt"), "w") as f:
             f.write(profiler.key_averages().table(sort_by=sort, row_limit=60))
         _LOG.info("profiler trace of steps 10-20 written to %s", self.profile_dir)
+        phases = step_phases(trace.snapshot()["spans"])
+        _LOG.info("host ms a step in the window (median): %s",
+                  ", ".join(f"{name} {ms:.2f}" for name, ms in phases.items()))
+
+
+def step_phases(spans) -> dict[str, float]:
+    """The median over train steps of each ``yolojax_torch.train.*`` span's
+    host ms in a step, by the span's last name (``forward``, ``loss``, …), in
+    the order the phases ran."""
+    steps = {s["id"] for s in spans if s["name"] == "yolojax_torch.train_step"}
+    per: dict[str, dict[int, float]] = {}
+    for s in spans:
+        if s["root"] in steps and s["name"].startswith("yolojax_torch.train."):
+            by_step = per.setdefault(s["name"].rsplit(".", 1)[1], {})
+            by_step[s["root"]] = by_step.get(s["root"], 0.0) + s["host_ms"]
+    return {name: float(np.median(list(v.values()))) for name, v in per.items()}
 
 
 def train_parser():

@@ -46,6 +46,13 @@ Where routing goes further than the JAX engine's:
 * in bf16 a depthwise pair wider than ``dwsep.MAX_BF16_CHANNELS`` does not
   go to the dwsep kernel (the JAX engine's ``engine.py:92-106`` routes it)
   but takes the unpaired route, which computes the same function.
+
+Each op of the folded walk runs under a span of ``utils/trace.py``
+(``yolojax_torch.plan.<op>``: ``layout`` for the entry cast and the exit
+copy, ``conv``, ``epilogue``, ``pool``, ``reorg``, ``concat``, ``dwconv``,
+``dwsep``; a fused kernel's span holds the epilogue it takes), which records
+only while a profiler does; ``mark`` and ``load`` record nothing, nor does
+the unfolded walk.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..kernels import ops as kernel_ops
 from ..kernels import pool as pool_k
 from ..kernels import reorg as reorg_k
 from ..ops.reorg import reorg
+from ..utils.trace import span
 from . import LayerDef, kernel_active
 from .blocks import BNConfig, bias_leaky, conv, conv_apply, fold_bn, max_pool
 
@@ -179,7 +187,8 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
     use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
     dwconv3x3, dwsep, maxpool2x2, reorg_s2d = _launchers()
     slots = {}
-    x = x.to(compute_dtype).permute(0, 3, 1, 2)
+    with span("yolojax_torch.plan.layout"):
+        x = x.to(compute_dtype).permute(0, 3, 1, 2)
     resume = 0   # ops before this index ran fused into an earlier one
     for i, op in enumerate(plan):
         if i < resume:
@@ -193,19 +202,23 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             n = _dwsep_pair(plan, i, x.shape[2], x.dtype) if use_dwsep else None
             if n is not None:
                 q = folded[n.name]
-                x = dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"], d.stride,
-                          q["w_oi"]).permute(0, 3, 1, 2)
+                with span("yolojax_torch.plan.dwsep", layer=d.name):
+                    x = dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
+                              d.stride, q["w_oi"]).permute(0, 3, 1, 2)
                 resume = i + 2
                 continue
             if use_dw_k and _dw_routable(d):
-                x = dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
-                              d.act).permute(0, 3, 1, 2)
+                with span("yolojax_torch.plan.dwconv", layer=d.name):
+                    x = dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
+                                  d.act).permute(0, 3, 1, 2)
                 continue
-            y = conv(x, p["w"], stride=d.stride, groups=d.groups)
+            with span("yolojax_torch.plan.conv", layer=d.name):
+                y = conv(x, p["w"], stride=d.stride, groups=d.groups)
             key, j, nxt = _after_conv(plan, i)
             if (use_pool_k and nxt is not None and nxt[0] == "pool"
                     and _pool_routable(y, nxt[1], nxt[2])):
-                out = maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
+                with span("yolojax_torch.plan.pool", layer=d.name):
+                    out = maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
                 if key is not None:
                     out, full = out
                     slots[key] = full.permute(0, 3, 1, 2)
@@ -214,31 +227,37 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             elif use_reorg_k and key is None and nxt is not None and nxt[0] == "reorg":
                 cat = plan[j + 1] if j + 1 < len(plan) and plan[j + 1][0] == "concat" else None
                 tail = None if cat is None else slots[cat[1]].permute(0, 2, 3, 1)
-                x = reorg_s2d(y.permute(0, 2, 3, 1), nxt[1], tail, p["b"],
-                              d.act).permute(0, 3, 1, 2)
+                with span("yolojax_torch.plan.reorg", layer=d.name):
+                    x = reorg_s2d(y.permute(0, 2, 3, 1), nxt[1], tail, p["b"],
+                                  d.act).permute(0, 3, 1, 2)
                 resume = j + 1 if cat is None else j + 2
             else:
-                x = bias_leaky(y, p["b"], d.act)
+                with span("yolojax_torch.plan.epilogue", layer=d.name):
+                    x = bias_leaky(y, p["b"], d.act)
         elif kind == "pool":
-            if use_pool_k and _pool_routable(x, op[1], op[2]):
-                x = maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-            else:
-                x = max_pool(x, op[1], op[2])
+            with span("yolojax_torch.plan.pool"):
+                if use_pool_k and _pool_routable(x, op[1], op[2]):
+                    x = maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                else:
+                    x = max_pool(x, op[1], op[2])
         elif kind == "mark":
             slots[op[1]] = x
         elif kind == "load":
             x = slots[op[1]]
         elif kind == "reorg":
-            if use_reorg_k:
-                x = reorg_s2d(x.permute(0, 2, 3, 1), op[1]).permute(0, 3, 1, 2)
-            else:
-                x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
+            with span("yolojax_torch.plan.reorg"):
+                if use_reorg_k:
+                    x = reorg_s2d(x.permute(0, 2, 3, 1), op[1]).permute(0, 3, 1, 2)
+                else:
+                    x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
         elif kind == "concat":
-            x = torch.cat([x, slots[op[1]]], dim=1).contiguous(
-                memory_format=torch.channels_last)
+            with span("yolojax_torch.plan.concat"):
+                x = torch.cat([x, slots[op[1]]], dim=1).contiguous(
+                    memory_format=torch.channels_last)
         else:
             raise ValueError(f"unknown plan op {kind!r}")
-    return x.permute(0, 2, 3, 1).contiguous()
+    with span("yolojax_torch.plan.layout"):
+        return x.permute(0, 2, 3, 1).contiguous()
 
 
 def _run_unfolded(plan, params, state, x, *, bn: BNConfig, train: bool, compute_dtype,

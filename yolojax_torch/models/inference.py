@@ -5,7 +5,12 @@ C++ library), and :func:`to_host`, which brings its output to the host.
 The JAX package's ``detect_fn(mesh=…)``, the batch sharded over devices, is
 one process per device here: each rank calls :meth:`Inference.detect_fn` on
 its share of the batch and the picks meet on rank 0
-(``cli/eval.py::run_eval``)."""
+(``cli/eval.py::run_eval``).
+
+A detect call runs under the span ``yolojax_torch.detect`` (``utils/trace.py``;
+recorded only while a profiler records), its forward under
+``yolojax_torch.forward`` and the decode and NMS after it under
+``yolojax_torch.post``."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 
 from ..ops.decode import Detections, decode, decode_flat
 from ..ops.postprocess import PostProcessed, postprocess
+from ..utils.trace import span
 from . import kernel_active
 
 __all__ = ["Inference", "to_host"]
@@ -56,18 +62,21 @@ class Inference:
 
         @torch.inference_mode()
         def run(folded, images) -> PostProcessed:
-            if use_fused:
-                from ..kernels.postprocess_fused import postprocess_fused
+            with span("yolojax_torch.detect", cuda=images.is_cuda, images=images.shape[0]):
+                with span("yolojax_torch.forward"):
+                    raw = self.model.apply_folded(folded, images)
+                with span("yolojax_torch.post"):
+                    anchors = self._anchors(raw.device)
+                    if use_fused:
+                        from ..kernels.postprocess_fused import postprocess_fused
 
-                raw = self.model.apply_folded(folded, images)
-                return postprocess_fused(raw, self._anchors(raw.device), threshold,
-                                         overlap, topk)
-            det = self(folded, images)
-            if use_nms:
-                from ..kernels.nms import postprocess_nms
+                        return postprocess_fused(raw, anchors, threshold, overlap, topk)
+                    det = decode(raw, anchors)
+                    if use_nms:
+                        from ..kernels.nms import postprocess_nms
 
-                return postprocess_nms(det, threshold, overlap, topk)
-            return postprocess(det, threshold, overlap, topk)
+                        return postprocess_nms(det, threshold, overlap, topk)
+                    return postprocess(det, threshold, overlap, topk)
 
         return run
 
@@ -82,19 +91,23 @@ class Inference:
 
         @torch.inference_mode()
         def run(folded, images) -> PostProcessed:
-            raw = self.model.apply_folded(folded, images)
-            flat = decode_flat(raw, self._anchors(raw.device)).cpu().numpy()
-            b, n, ch = flat.shape
-            c = ch - 5
-            boxes = flat[..., :4]                                       # (B, N, 4)
-            scores = np.moveaxis(flat[..., 5:], -1, 1).reshape(b * c, n)
-            idx, conf, count = nms_native_batch(
-                np.broadcast_to(boxes[:, None], (b, c, n, 4)).reshape(b * c, n, 4), scores,
-                threshold, overlap, topk)
-            picked = boxes[np.arange(b)[:, None, None], idx.reshape(b, c, topk)]  # (B, C, K, 4)
-            keep = np.arange(topk) < count.reshape(b, c, 1)
-            return PostProcessed(*(torch.from_numpy(np.ascontiguousarray(v)) for v in (
-                picked[..., :2], picked[..., 2:], conf.reshape(b, c, topk), keep)))
+            with span("yolojax_torch.detect", cuda=images.is_cuda, images=images.shape[0]):
+                with span("yolojax_torch.forward"):
+                    raw = self.model.apply_folded(folded, images)
+                with span("yolojax_torch.post"):
+                    flat = decode_flat(raw, self._anchors(raw.device)).cpu().numpy()
+                    b, n, ch = flat.shape
+                    c = ch - 5
+                    boxes = flat[..., :4]                               # (B, N, 4)
+                    scores = np.moveaxis(flat[..., 5:], -1, 1).reshape(b * c, n)
+                    idx, conf, count = nms_native_batch(
+                        np.broadcast_to(boxes[:, None], (b, c, n, 4)).reshape(b * c, n, 4),
+                        scores, threshold, overlap, topk)
+                    picked = boxes[np.arange(b)[:, None, None],
+                                   idx.reshape(b, c, topk)]             # (B, C, K, 4)
+                    keep = np.arange(topk) < count.reshape(b, c, 1)
+                    return PostProcessed(*(torch.from_numpy(np.ascontiguousarray(v)) for v in (
+                        picked[..., :2], picked[..., 2:], conf.reshape(b, c, topk), keep)))
 
         return run
 

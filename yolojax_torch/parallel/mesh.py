@@ -21,6 +21,12 @@ fixed at launch, ``collectives.init_from_env``), ``shard_host_batch`` /
 ``batch_sharding`` to :func:`batch_slice`, and ``replicated_sharding`` to
 every rank holding the whole params.  Compiled or graph-captured steps per
 bucketed size are not ported.
+
+A step runs under the span ``yolojax_torch.train_step`` (``utils/trace.py``;
+recorded only while a profiler records), its phases under
+``yolojax_torch.train.augment`` (with an augmentation), ``.forward``,
+``.loss``, ``.backward`` (the gradients and the zero fill), ``.allreduce``
+(with a group) and ``.optimizer`` (the update and the metrics' norm).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.loss import LossConfig, region_loss
+from ..utils.trace import span
 from ..utils.train import Optimizer, global_norm
 from .collectives import average, average_grads, rank, world
 
@@ -86,35 +93,45 @@ def make_train_step(model, optimizer: Optimizer, weights: dict[str, float],
         if dev not in anchors_on:
             anchors_on[dev] = torch.as_tensor(model.anchors, dtype=torch.float32, device=dev)
         leaves = [(k, n) for k, lp in params.items() for n in lp]
-        live = {k: {n: v.detach().requires_grad_(True) for n, v in lp.items()}
-                for k, lp in params.items()}
-        raw, new_state = model.apply(live, state, images, train=True, group=group)
-        comps = region_loss(raw, anchors_on[dev], yx_min, yx_max, cls, valid, seen, loss_cfg)
-        total = sum(weights[k] * comps[k] for k in comps)
-        got = torch.autograd.grad(total, [live[k][n] for k, n in leaves], allow_unused=True)
-        grads = {k: {} for k in params}
-        for (k, n), g in zip(leaves, got):
-            # a leaf the forward did not read (γ or β switched off) gets 0
-            grads[k][n] = torch.zeros_like(params[k][n]) if g is None else g
+        with span("yolojax_torch.train.forward"):
+            live = {k: {n: v.detach().requires_grad_(True) for n, v in lp.items()}
+                    for k, lp in params.items()}
+            raw, new_state = model.apply(live, state, images, train=True, group=group)
+        with span("yolojax_torch.train.loss"):
+            comps = region_loss(raw, anchors_on[dev], yx_min, yx_max, cls, valid, seen, loss_cfg)
+            total = sum(weights[k] * comps[k] for k in comps)
+        with span("yolojax_torch.train.backward"):
+            got = torch.autograd.grad(total, [live[k][n] for k, n in leaves], allow_unused=True)
+            grads = {k: {} for k in params}
+            for (k, n), g in zip(leaves, got):
+                # a leaf the forward did not read (γ or β switched off) gets 0
+                grads[k][n] = torch.zeros_like(params[k][n]) if g is None else g
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in comps.items()}
             metrics["total"] = total.detach()
             if group is not None:
-                grads = average_grads(grads, group)
-                metrics = average(metrics, group)
-            new_params, new_opt_state = optimizer.step(grads, opt_state, params)
-            metrics.update(grad_norm=global_norm(grads), grads=grads)
+                with span("yolojax_torch.train.allreduce"):
+                    grads = average_grads(grads, group)
+                    metrics = average(metrics, group)
+            with span("yolojax_torch.train.optimizer"):
+                new_params, new_opt_state = optimizer.step(grads, opt_state, params)
+                metrics.update(grad_norm=global_norm(grads), grads=grads)
         return new_params, new_state, new_opt_state, metrics
 
     if augment is None:
         def step(params, state, opt_state, batch, seen):
-            return _update(params, state, opt_state, batch["images"], batch["yx_min"],
-                           batch["yx_max"], batch["cls"], batch["valid"], seen)
+            images = batch["images"]
+            with span("yolojax_torch.train_step", cuda=images.is_cuda, images=images.shape[0]):
+                return _update(params, state, opt_state, images, batch["yx_min"],
+                               batch["yx_max"], batch["cls"], batch["valid"], seen)
     else:
         def step(params, state, opt_state, batch, seen, draws, out_size: int):
-            images, ymin, ymax, valid = augment.apply(
-                batch["canvas"], batch["hw"], batch["yx_min"], batch["yx_max"], batch["valid"],
-                draws, out_size)
-            return _update(params, state, opt_state, images, ymin, ymax, batch["cls"], valid,
-                           seen)
+            canvas = batch["canvas"]
+            with span("yolojax_torch.train_step", cuda=canvas.is_cuda, images=canvas.shape[0]):
+                with span("yolojax_torch.train.augment"):
+                    images, ymin, ymax, valid = augment.apply(
+                        canvas, batch["hw"], batch["yx_min"], batch["yx_max"], batch["valid"],
+                        draws, out_size)
+                return _update(params, state, opt_state, images, ymin, ymax, batch["cls"],
+                               valid, seen)
     return step
