@@ -15,7 +15,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
 
 1. device — a CUDA device must be present; prints its name and
    ``nvidia-smi``'s name and power limit;
-2. build — compiles the six kernels of ``yolojax_torch/csrc`` at once, one
+2. build — compiles the seven kernels of ``yolojax_torch/csrc`` at once, one
    ``nvcc`` each, prints each one's registers and spills, and requires
    HGMMA (wgmma) in the SASS of dwsep's bf16 kernel (``cuobjdump``);
    then the host time of one ``maxpool2x2`` call at Tiny's batch-8 pool4
@@ -57,33 +57,40 @@ Phases, each of which passes or raises (any failure exits non-zero):
    bf16, built from ``config.ini`` with a seeded fresh init (objectness bias
    −6, the bench density), through ``Inference.detect_fn(0.005, 0.45, 100)``
    on batches of 8; every launch counter is set to 0 just before and read
-   just after, and must show one fused launch per batch and nothing else;
+   just after, and must show one fused launch and 23 of the one-pass
+   epilogue (``bias_leaky_nhwc``, every conv's) per batch and nothing else;
    the outputs must be finite and ``keep`` must match the plain postprocess
-   of the same raw head; then ``cli.detect.detect_image`` on one seeded
-   480×640 image;
+   of the same raw head; every epilogue call of one forward, on the conv
+   output it is handed, bit-identical to ``bias_leaky`` (six torch ops) on
+   the same tensor; the raw head bit-identical to the same forward with
+   ``bias_leaky`` in place of the kernel, in f32 (TF32 off) and, where
+   cuDNN allows, in bf16, as for Darknet-s2d; then
+   ``cli.detect.detect_image`` on one seeded 480×640 image;
 6. MobileNet main path — full-width MobileNet-YOLOv2 at 416 from
    ``config.ini`` + ``config/mobilenet.ini`` with ``pallas = nms fusedpost
    dwsep dwconv``, the same seeded init, density and checks: dwconv 4,
-   dwsep 7 and fused 1 launch per batch; one more batch with the objectness
-   bias at 0, where the random head has picks, against the plain
-   postprocess; the raw head against the same forward without ``dwsep
-   dwconv`` (cuDNN): f32 rtol/atol 1e-3 with TF32 off, bf16 mean abs diff
-   ≤ 1 % of mean |raw|; then ``detect_image``;
+   dwsep 7, bias_leaky_nhwc 14 and fused 1 launch per batch; one more batch
+   with the objectness bias at 0, where the random head has picks, against
+   the plain postprocess; the raw head against the plain path, the same
+   forward without ``dwsep dwconv`` (cuDNN) and with ``bias_leaky`` in place
+   of the one-pass epilogue: f32 rtol/atol 1e-3 with TF32 off, bf16 mean abs
+   diff ≤ 1 % of mean |raw|; then ``detect_image``;
 7. Darknet-s2d main path — Darknet-19 from ``config.ini`` with ``reorg =
    s2d`` and ``pallas = nms pool reorg``, the same init, density and
-   checks: nms_select 1, maxpool2x2 3 and reorg_s2d 1 launch per batch; the
-   dense batch; the raw head bit-identical to the same forward without
-   ``pool reorg`` in f32 (TF32 off) and, where cuDNN allows, in bf16 (else
-   within MobileNet's 1 % bound, said so); a CUDA graph capture of one
-   forward: the three pools and the reorg run their fused (bias)
-   instantiations, and the device kernels per forward with and without
-   ``pool reorg``; ``torch.profiler``'s host ops: no ``aten::cat``; then
+   checks: nms_select 1, maxpool2x2 3, reorg_s2d 1 and bias_leaky_nhwc 19
+   launches per batch; the dense batch; the raw head bit-identical to the
+   plain path (without ``pool reorg``, ``bias_leaky`` for the epilogues) in
+   f32 (TF32 off) and, where cuDNN allows, in bf16 (else within MobileNet's
+   1 % bound, said so); a CUDA graph capture of one forward: the three
+   pools and the reorg run their fused (bias) instantiations, and the
+   device kernels per forward with the path's kernels and on the plain
+   path; ``torch.profiler``'s host ops: no ``aten::cat``; then
    ``detect_image``;
 8. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
-   with ``pallas = nms fusedpost pool``: maxpool2x2 2 (fused) and fused
-   decode+NMS 1 launch per batch, a (B,13,13,125) raw head, the dense batch,
-   the raw head against the forward without ``pool`` as for Darknet-s2d,
-   ``detect_image``;
+   with ``pallas = nms fusedpost pool``: maxpool2x2 2 (fused),
+   bias_leaky_nhwc 7 and fused decode+NMS 1 launch per batch, a
+   (B,13,13,125) raw head, the dense batch, the raw head against the plain
+   path (without ``pool``) as for Darknet-s2d, ``detect_image``;
 9. times (each model's right after its path) — CUDA events, warm-up, median
    of 7 (or of 8 taken in turns): each kernel against its plain version and,
    where one PyTorch call computes the TPU kernel's function, that call
@@ -93,8 +100,12 @@ Phases, each of which passes or raises (any failure exits non-zero):
    the path runs it, on its conv's raw output, the fused reorg + concat at
    c21's shape), each beside its bound (bytes over 3.35 TB/s or operations
    over the peak of their type, from this run's inputs; dwsep's layers also
-   as TFLOP/s), and detect images/s of each path, with and without its
-   forward kernels;
+   as TFLOP/s), and detect images/s of each path and of its plain path
+   (without its forward kernels, ``bias_leaky`` for the one-pass
+   epilogue); the one-pass epilogue at c1's and c20's shapes against
+   ``bias_leaky`` (six torch ops; the outputs bit-identical), and a call's
+   device µs in a CUDA graph of back-to-back calls, which at batch 128 must
+   reach 80 % (c1) and 65 % (c20) of 3.35 TB/s;
 10. train path — the train CLI's loop (``cli.train.Train``) on 64 seeded
    in-memory images of 200-500 px (filled rectangles; an injected
    ``imread``, as the chip machine has no cv2) through the record cache,
@@ -259,10 +270,15 @@ the two gates' evals, the bench's runs and phase 17's (both nodes' eval,
 the COCO-80 tool, the runner's two jobs) included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
-Times are information, not a benchmark.  The train path runs no
-hand-written kernel but the fused decode+NMS on its checkpoint: the JAX
-package trains with every Pallas kernel off.  Eval runs the fused decode+NMS
-(or nms_select with ``pallas = nms``), on one device or on each rank.
+Wherever a phase counts launches it counts the one-pass epilogue's
+(``bias_leaky_nhwc``) too: one for each conv of a folded forward whose
+epilogue no pool, reorg or depthwise kernel takes (23 a Darknet-19 forward
+without the pool kernel), none in a train step.
+Times are information, not a benchmark.  The train step runs no
+hand-written kernel (the JAX package trains with every Pallas kernel off);
+the detect on its checkpoint runs the fused decode+NMS and the one-pass
+epilogue.  Eval runs those two (or nms_select in place of the first with
+``pallas = nms``), on one device or on each rank.
 """
 
 from __future__ import annotations
@@ -306,7 +322,13 @@ DARKNET_POOLS = [(104, 128, False), (52, 256, False), (26, 512, True)]
 TINY_POOLS = [(52, 128, False), (26, 256, False)]
 REORG_SHAPE = (26, 64)      # c21's output at 416: (B, 26, 26, 64) -> (B, 13, 13, 256)
 REORG_TAIL = 1024           # the passthrough's top, (B, 13, 13, 1024), concatenated after it
-KERNELS = ("postprocess_fused", "dwconv3x3", "dwsep", "nms_select", "maxpool2x2", "reorg_s2d")
+# the one-pass epilogue's timed conv outputs at 416, (H, C), and the share of the
+# bytes bound's rate its device time must reach at batch 128: Darknet-19's largest
+# (c1) and one of its deepest (c20)
+EPILOGUE_SHAPES = {"c1": (416, 32), "c20": (13, 1024)}
+EPILOGUE_TARGETS = {"c1": 0.80, "c20": 0.65}
+KERNELS = ("postprocess_fused", "dwconv3x3", "dwsep", "nms_select", "maxpool2x2", "reorg_s2d",
+           "bias_leaky_nhwc")
 
 
 def per_batch(**counts) -> dict:
@@ -314,11 +336,23 @@ def per_batch(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
-# kernel launches per detect_fn batch on each main path
-DARKNET_LAUNCHES = per_batch(postprocess_fused=1)
-MOBILENET_LAUNCHES = per_batch(postprocess_fused=1, dwconv3x3=4, dwsep=7)
-S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=3, reorg_s2d=1)
-TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=2)
+def scaled(per_call: dict, n: int) -> dict:
+    """The launches of ``n`` calls that each launch ``per_call``."""
+    return {name: count * n for name, count in per_call.items()}
+
+
+# convs of a Darknet-19 forward, each one's epilogue on bias_leaky_nhwc where no
+# routed pool or reorg takes it
+DARKNET_EPILOGUES = 23
+# kernel launches per detect_fn batch on each main path; bias_leaky_nhwc: each conv
+# whose epilogue no pool, reorg or depthwise kernel takes (MobileNet: 32 convs, 18
+# of them on dwconv3x3 or dwsep; Tiny: 9, 2 on maxpool2x2)
+DARKNET_LAUNCHES = per_batch(postprocess_fused=1, bias_leaky_nhwc=DARKNET_EPILOGUES)
+MOBILENET_LAUNCHES = per_batch(postprocess_fused=1, dwconv3x3=4, dwsep=7, bias_leaky_nhwc=14)
+S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=3, reorg_s2d=1, bias_leaky_nhwc=19)
+TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=2, bias_leaky_nhwc=7)
+# Darknet-19 with pallas = nms: nms_select in place of the fused kernel
+DARKNET_NMS_LAUNCHES = per_batch(nms_select=1, bias_leaky_nhwc=DARKNET_EPILOGUES)
 # kernel-vs-plain cases beyond the routed shapes: odd spatial sizes, C % 128 != 0
 # (2, 37, ...): the last 16-row tile of the 37 output rows holds 5; (1, 400, ...) and
 # (1, 600, ...) walk each row in two column tiles
@@ -388,11 +422,12 @@ def check_device() -> tuple[str, str]:
 
 
 def build_kernels() -> None:
-    from yolojax_torch.kernels import _build, dwconv, dwsep, nms, pool, postprocess_fused, reorg
+    from yolojax_torch.kernels import (_build, dwconv, dwsep, epilogue, nms, pool,
+                                       postprocess_fused, reorg)
 
     t0 = time.perf_counter()
     libs = _build.build_all([postprocess_fused.SOURCE, dwconv.SOURCE, dwsep.SOURCE, nms.SOURCE,
-                             pool.SOURCE, reorg.SOURCE])
+                             pool.SOURCE, reorg.SOURCE, epilogue.SOURCE])
     log(f"[build] {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s "
         "(in parallel)")
     for lib in libs:
@@ -781,13 +816,15 @@ def in_turns(*fns) -> tuple[float, ...]:
 def launch_counters():
     from yolojax_torch.kernels.dwconv import dwconv3x3
     from yolojax_torch.kernels.dwsep import dwsep
+    from yolojax_torch.kernels.epilogue import bias_leaky_nhwc
     from yolojax_torch.kernels.nms import nms_select
     from yolojax_torch.kernels.pool import maxpool2x2
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
     from yolojax_torch.kernels.reorg import reorg_s2d
 
     return {"postprocess_fused": postprocess_fused, "dwconv3x3": dwconv3x3, "dwsep": dwsep,
-            "nms_select": nms_select, "maxpool2x2": maxpool2x2, "reorg_s2d": reorg_s2d}
+            "nms_select": nms_select, "maxpool2x2": maxpool2x2, "reorg_s2d": reorg_s2d,
+            "bias_leaky_nhwc": bias_leaky_nhwc}
 
 
 def seeded_images(seed: int, b: int) -> torch.Tensor:
@@ -827,7 +864,7 @@ def drive(config, what: str, expect: dict):
     outs = [run(folded, x) for x in batches]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {name: n * len(batches) for name, n in expect.items()}
+    want = scaled(expect, len(batches))
     if launches != want:
         raise AssertionError(f"{what}: {len(batches)} batches launched {launches}, "
                              f"expected {want}")
@@ -886,25 +923,87 @@ def dense_batch(model, folded, run, what: str) -> None:
 
 def without(model, tokens: set):
     """The same model with the kernel ``tokens`` removed: it runs on the same
-    folded weights (the plain path reads only their ``w`` and ``b``)."""
+    folded weights (the plain path reads only their ``w`` and ``b``).  Its
+    forward is the plain path only under :func:`plain_epilogue`."""
     return dataclasses.replace(model, pallas=model.pallas - set(tokens))
 
 
+@contextlib.contextmanager
+def epilogue_as(fn):
+    """While inside, the engine's conv epilogues that no other kernel takes
+    call ``fn(x, bias, act)`` in place of ``kernels/epilogue.py``'s wrapper:
+    the last of the entry points ``engine._launchers`` hands each forward.
+    The wrapper itself is left as it is (it counts its launches on itself)."""
+    from yolojax_torch.models import engine
+
+    launchers = engine._launchers
+    engine._launchers = lambda: (*launchers()[:-1], fn)
+    try:
+        yield
+    finally:
+        engine._launchers = launchers
+
+
+def plain_epilogue():
+    """While inside, those epilogues run as ``bias_leaky`` (six torch ops, a
+    pass each) in place of the one-pass kernel: with :func:`without`, the
+    plain path."""
+    from yolojax_torch.kernels.epilogue import bias_leaky_nhwc_plain
+
+    return epilogue_as(bias_leaky_nhwc_plain)
+
+
+def plain(fn):
+    """``fn`` run under :func:`plain_epilogue` at each call."""
+    def call(*args, **kwargs):
+        with plain_epilogue():
+            return fn(*args, **kwargs)
+    return call
+
+
+def epilogue_vs_plain(model, folded, what: str) -> float:
+    """One batch-8 forward of the path, every call it makes to the one-pass
+    epilogue checked on the conv output it hands over: bit-identical to
+    ``bias_leaky`` (six torch ops) on the same tensor.  Returns the largest
+    abs error (0 where they agree)."""
+    from yolojax_torch.kernels.epilogue import bias_leaky_nhwc, bias_leaky_nhwc_plain
+
+    calls = []
+
+    def checked(x, bias, act=True):
+        y = bias_leaky_nhwc(x, bias, act)
+        want = bias_leaky_nhwc_plain(x, bias, act)
+        calls.append((tuple(x.shape), float((y.float() - want.float()).abs().max())))
+        if not torch.equal(bits(y), bits(want)):
+            raise AssertionError(f"{what}: bias_leaky_nhwc on the conv output "
+                                 f"{tuple(x.shape)} {x.dtype} (act {act}) differs from "
+                                 f"bias_leaky (max abs diff {calls[-1][1]:.4g})")
+        return y
+
+    with epilogue_as(checked), torch.inference_mode():
+        model.apply_folded(folded, seeded_images(6, 8))
+    err = max(e for _, e in calls)
+    log(f"[{what}] bias_leaky_nhwc bit-identical to bias_leaky on every epilogue of a "
+        f"batch-8 forward: {len(calls)} calls, shapes from {calls[0][0]} to {calls[-1][0]}")
+    return err
+
+
 def raw_vs_without(model, folded, config_fn, drop: set, what: str, exact: bool) -> None:
-    """The raw head against the same forward without the kernels ``drop``, on
-    the same weights and images, in bf16 and (rebuilt from the same seed) in
-    f32 with TF32 off.  ``exact``: kernels that change no value (pool,
-    reorg), so the convs see the same inputs and the heads should be
-    bit-identical; f32 must be, bf16 falls back to the 1 % bound if cuDNN's
-    algorithm choice differs.  Otherwise: bf16 mean abs diff ≤ 1 % of mean
-    |raw|, f32 rtol/atol 1e-3."""
+    """The raw head against the plain path: the same forward without the
+    kernels ``drop`` and with ``bias_leaky`` in place of the one-pass
+    epilogue, on the same weights and images, in bf16 and (rebuilt from the
+    same seed) in f32 with TF32 off.  ``exact``: kernels that change no
+    value (pool, reorg, the epilogue), so the convs see the same inputs and
+    the heads should be bit-identical; f32 must be, bf16 falls back to the
+    1 % bound if cuDNN's algorithm choice differs.  Otherwise: bf16 mean
+    abs diff ≤ 1 % of mean |raw|, f32 rtol/atol 1e-3."""
     from yolojax_torch.cli.common import build, load_weights_auto
 
-    label = " ".join(sorted(drop))
+    label = " ".join([*sorted(drop), "bias_leaky_nhwc"])
     x = seeded_images(5, 8)
     with torch.inference_mode():
         got = model.apply_folded(folded, x)
-        want = without(model, drop).apply_folded(folded, x)
+        want = plain(without(model, drop).apply_folded)(folded, x)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{what} bf16: non-finite raw head")
         diff = (got.float() - want.float()).abs()
@@ -925,7 +1024,7 @@ def raw_vs_without(model, folded, config_fn, drop: set, what: str, exact: bool) 
         params32, state32, _ = load_weights_auto(config32, model32, rng_seed=0, device="cuda")
         folded32 = model32.fold(params32, state32)
         got = model32.apply_folded(folded32, x)
-        want = without(model32, drop).apply_folded(folded32, x)
+        want = plain(without(model32, drop).apply_folded)(folded32, x)
         if exact:
             if not torch.equal(bits(got), bits(want)):
                 raise AssertionError(f"{what} f32 raw head: not bit-identical without {label} "
@@ -939,14 +1038,19 @@ def raw_vs_without(model, folded, config_fn, drop: set, what: str, exact: bool) 
                 f"diff {(got - want).abs().max().item():.4g} within rtol/atol 1e-3")
 
 
-def darknet_config():
+def darknet_config(dtype: str = "bfloat16"):
     from yolojax_torch.config import load_config
 
-    return load_config(None)      # the repo's config.ini: Darknet-19, VOC, bf16, fusedpost
+    # the repo's config.ini: Darknet-19, VOC, bf16, fusedpost
+    return load_config(None, [f"model/dtype={dtype}"])
 
 
 def darknet_path():
-    return drive(darknet_config(), "darknet", DARKNET_LAUNCHES)
+    """The Darknet main path: drive it, then hold its raw head to the plain
+    path's (``bias_leaky`` in place of the one-pass epilogue)."""
+    model, _, _, folded, run, launches = drive(darknet_config(), "darknet", DARKNET_LAUNCHES)
+    raw_vs_without(model, folded, darknet_config, set(), "darknet", exact=True)
+    return model, folded, run, launches
 
 
 def mobilenet_config(tokens: str = MOBILENET_TOKENS, dtype: str = "bfloat16"):
@@ -975,7 +1079,7 @@ DW_TOKENS = {"dwsep", "dwconv"}
 
 def kernel_path(what: str, config_fn, expect: dict, drop: set, exact: bool):
     """A main path through kernels of the forward: drive it, check a dense
-    batch, and hold its raw head to the forward without those kernels."""
+    batch, and hold its raw head to the plain path's."""
     model, _, _, folded, run, launches = drive(config_fn(), what, expect)
     dense_batch(model, folded, run, what)
     raw_vs_without(model, folded, config_fn, drop, what, exact)
@@ -1079,11 +1183,12 @@ def dw_times(card: str) -> dict:
 
 
 def detect_times(model, folded, run, drop: set, name: str, card: str) -> dict:
-    """detect images/s with the path's kernels and without the forward
-    kernels ``drop``, in turns, at each timed batch."""
+    """detect images/s with the path's kernels and on its plain path
+    (without the forward kernels ``drop``, ``bias_leaky`` for the one-pass
+    epilogue), in turns, at each timed batch."""
     from yolojax_torch.models.inference import Inference
 
-    plain_run = Inference(without(model, drop)).detect_fn(THRESHOLD, OVERLAP, TOPK)
+    plain_run = plain(Inference(without(model, drop)).detect_fn(THRESHOLD, OVERLAP, TOPK))
     result = {}
     for b in TIME_BATCHES:
         x = seeded_images(3, b)
@@ -1092,8 +1197,8 @@ def detect_times(model, folded, run, drop: set, name: str, card: str) -> dict:
                      "plain_detect_ms": t_plain, "plain_img_per_s": b / (t_plain / 1e3)}
         log(f"[time] {card} | {name} detect batch {b} at {SIZE}: with {sorted(model.pallas)} "
             f"{t_kernel:.3f} ms = {result[b]['img_per_s']:.1f} img/s; without "
-            f"{' '.join(sorted(drop))} {t_plain:.3f} ms = {result[b]['plain_img_per_s']:.1f} "
-            "img/s (median of 8 / 8)")
+            f"{' '.join([*sorted(drop), 'bias_leaky_nhwc'])} {t_plain:.3f} ms = "
+            f"{result[b]['plain_img_per_s']:.1f} img/s (median of 8 / 8)")
     return result
 
 
@@ -1192,6 +1297,71 @@ def layout_times(card: str) -> dict:
     return result
 
 
+def graph_us(fn, calls: int) -> float:
+    """Device µs a call of ``fn``: a CUDA graph of ``calls`` calls replayed
+    between two CUDA events, over ``calls`` (median of 5 replays), so no
+    host time lies between the launches, as a small call's wrapper would
+    put there; ``torch.profiler`` drops device events on some machines."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = cuda_ms(graph.replay, reps=5, warmup=1)
+    graph.reset()
+    return float(np.median(times)) * 1e3 / calls
+
+
+def epilogue_times(card: str) -> tuple[dict, float]:
+    """The one-pass bias + leaky epilogue (``kernels/epilogue.py``) at
+    EPILOGUE_SHAPES, bf16 with leaky, against its plain version
+    (``bias_leaky``: six torch ops, each a pass over the activation): the
+    outputs bit-identical; in turns, one call's ms on CUDA events (the
+    wrapper's host time included); and a call's device µs in a CUDA graph of
+    back-to-back calls (:func:`graph_us`), beside the bound (the raw output
+    and the bias read once, the result written once, over 3.35 TB/s; a small
+    output the next call reads from L2 can beat it).  At batch 128 the
+    graph's time must reach EPILOGUE_TARGETS of the bound.  Returns (per
+    (layer, batch) the row's numbers, the largest abs error)."""
+    from yolojax_torch.kernels.epilogue import bias_leaky_nhwc, bias_leaky_nhwc_plain
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    result, short, err = {}, [], 0.0
+    for b in TIME_BATCHES:
+        for layer, (h, c) in EPILOGUE_SHAPES.items():
+            x = torch.randn((b, h, h, c), generator=g, device="cuda").to(torch.bfloat16)
+            bias = torch.randn(c, generator=g, device="cuda") * 0.5
+            got, want = bias_leaky_nhwc(x, bias), bias_leaky_nhwc_plain(x, bias)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"bias_leaky_nhwc {layer} {tuple(x.shape)}: not "
+                                     f"bit-identical to bias_leaky (max abs diff {err:.4g})")
+            del got, want
+            t_plain, t_kernel = in_turns(lambda: bias_leaky_nhwc_plain(x, bias),
+                                         lambda: bias_leaky_nhwc(x, bias))
+            calls = 4 if nbytes(x) > 2**30 else 20
+            device_us = graph_us(lambda: bias_leaky_nhwc(x, bias), calls)
+            moved = 2 * nbytes(x) + nbytes(bias)
+            bound = Bound().add(moved, {"f32": 3 * x.numel()})
+            share = bound.total * 1e3 / device_us
+            result[(layer, b)] = {"ms": t_kernel, "device_us": device_us, "plain_ms": t_plain,
+                                  "library_ms": None, "bound_ms": bound.total,
+                                  "bound_by": bound.by, "share": share}
+            log(f"[time] {card} | bias_leaky_nhwc {layer} {tuple(x.shape)} bf16: "
+                "bit-identical to bias_leaky; kernel "
+                f"{t_kernel:.4f} ms, device {device_us:.1f} us a call in a graph of {calls} = "
+                f"{moved / 1e3 / device_us:.0f} GB/s, {100 * share:.1f} % of its bound "
+                f"{bound.total:.4f} ms ({bound.by}); plain (bias_leaky) {t_plain:.4f} ms "
+                "(median of 8 / 8); no PyTorch call computes it in one pass")
+            if b == TIME_BATCHES[-1] and share < EPILOGUE_TARGETS[layer]:
+                short.append(f"{layer} at batch {b}: {100 * share:.1f} % < "
+                             f"{100 * EPILOGUE_TARGETS[layer]:.0f} %")
+    if short:
+        raise AssertionError(f"bias_leaky_nhwc below its target share of the bound: {short}")
+    return result, err
+
+
 def host_split(card: str) -> dict:
     """Where a kernel wrapper's host time goes: each part of a maxpool2x2
     call at Tiny's batch-8 pool4 shape, (8, 52, 52, 128) bf16, timed alone
@@ -1280,7 +1450,8 @@ def host_split(card: str) -> dict:
     return result
 
 
-# --profile's paths: (config, the forward kernels' tokens the second run drops)
+# --profile's paths: (config, the forward kernels' tokens the second run, the plain
+# path, drops; it also runs bias_leaky in place of the one-pass epilogue)
 PROFILE_PATHS = {"mobilenet": (lambda: mobilenet_config(), DW_TOKENS),
                  "darknet-s2d": (lambda: s2d_config(), {"pool", "reorg"}),
                  "tiny": (lambda: tiny_config(), {"pool"}),
@@ -1289,7 +1460,7 @@ PROFILE_PATHS = {"mobilenet": (lambda: mobilenet_config(), DW_TOKENS),
 
 def profile(card: str, path: str) -> None:
     """torch.profiler over 5 detect calls of ``path`` at batch 128, with its
-    forward kernels and without them: device time by kernel."""
+    forward kernels and on its plain path: device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1306,11 +1477,10 @@ def profile(card: str, path: str) -> None:
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start-up
         Inference(model).detect_fn(THRESHOLD, OVERLAP, TOPK)(folded, x)
         torch.cuda.synchronize()
-    runs = [(" ".join(sorted(model.pallas)), model)]
-    if drop:
-        runs.append((f"without {' '.join(sorted(drop))}", without(model, drop)))
-    for what, m in runs:
-        run = Inference(m).detect_fn(THRESHOLD, OVERLAP, TOPK)
+    runs = [(" ".join(sorted(model.pallas)), Inference(model).detect_fn(THRESHOLD, OVERLAP, TOPK)),
+            (f"without {' '.join([*sorted(drop), 'bias_leaky_nhwc'])}",
+             plain(Inference(without(model, drop)).detect_fn(THRESHOLD, OVERLAP, TOPK)))]
+    for what, run in runs:
         for _ in range(3):
             run(folded, x)
         torch.cuda.synchronize()
@@ -1340,13 +1510,15 @@ def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) 
     must be its fused (bias) instantiation (a CUDA graph capture of the
     forward, ``captured_work``), and the forward must call no ``aten::cat``
     (``torch.profiler``'s host-side ops); prints the device kernels per
-    forward with the path's kernels and without ``drop``."""
+    forward with the path's kernels and on the plain path (without ``drop``,
+    ``bias_leaky`` for the one-pass epilogue)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     x = seeded_images(4, 8)
     counts = {}
-    for label, m in (("with", model), ("without", without(model, drop))):
-        with torch.inference_mode():
+    for label, m, epilogue in (("with", model, contextlib.nullcontext()),
+                               ("without", without(model, drop), plain_epilogue())):
+        with epilogue, torch.inference_mode():
             m.apply_folded(folded, x)
             device = captured_work(lambda: m.apply_folded(folded, x))
             with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -1367,7 +1539,8 @@ def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) 
                                  f"{pools} fused pools, {reorgs} fused reorgs and no cat")
     log(f"[{what}] one batch-8 forward: {pools} maxpool2x2 and {reorgs} reorg_s2d launches, "
         f"all with the conv's epilogue, no aten::cat; {counts['with']} per forward in a "
-        f"graph capture ({counts['without']} without {' '.join(sorted(drop))})")
+        f"graph capture ({counts['without']} on the plain path: without "
+        f"{' '.join([*sorted(drop), 'bias_leaky_nhwc'])})")
 
 
 def cuda_tests() -> None:
@@ -1543,7 +1716,7 @@ def trained_detect(run: dict) -> dict:
     outs = [detect(folded, x) for x in batches]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = {name: n * len(batches) for name, n in DARKNET_LAUNCHES.items()}
+    want = scaled(DARKNET_LAUNCHES, len(batches))
     if launches != want:
         raise AssertionError(f"detect on the trained checkpoint launched {launches}, "
                              f"expected {want}")
@@ -2089,7 +2262,7 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
     main, launches, seconds = eval_once(config, params, state, records, imread,
                                         "bf16 on the card (fused decode+NMS)",
-                                        per_batch(postprocess_fused=batches))
+                                        scaled(DARKNET_LAUNCHES, batches))
     log("[eval] AP per class: " + ", ".join(f"{names[c]} {ap:.4f}"
                                             for c, ap in sorted(main["ap"].items())))
 
@@ -2103,7 +2276,7 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
     nms_cfg = eval_config("model/pallas=nms")
     nms, nms_launches, _ = eval_once(nms_cfg, params, state, records, imread,
                                      "bf16 on the card with pallas = nms (nms_select)",
-                                     per_batch(nms_select=batches))
+                                     scaled(DARKNET_NMS_LAUNCHES, batches))
     picks = same_picks(nms["recorder"], main["recorder"], "pallas = nms against fusedpost")
     if nms["map"] != main["map"]:
         raise AssertionError(f"eval: pallas = nms gives mAP {nms['map']}, fusedpost "
@@ -2117,7 +2290,7 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
         p, s, _ = load_weights_auto(cfg, build(cfg)[2], final, device=device)
         where = "card" if device == "cuda" else "CPU"
         f32[device], _, _ = eval_once(cfg, p, s, records, imread, f"f32 on the {where}",
-                                      per_batch(postprocess_fused=batches)
+                                      scaled(DARKNET_LAUNCHES, batches)
                                       if device == "cuda" else None)
     gap = {"map": abs(f32["cuda"]["map"] - f32["cpu"]["map"]),
            "ap": max(abs(f32["cuda"]["ap"][k] - v) for k, v in f32["cpu"]["ap"].items())}
@@ -2151,10 +2324,13 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
 DEPLOY_DIR = ROOT / "build" / "chip_smoke_deploy"   # git-ignored: programs, pruned checkpoints
 DEPLOY_BATCHES = 3
 # the four paths the export takes, with the custom-op calls each program holds at 416
-EXPORT_PATHS = {"darknet": (darknet_config, {}),
-                "mobilenet": (mobilenet_config, {"dwconv3x3": 4, "dwsep": 7}),
-                "darknet-s2d": (s2d_config, {"maxpool2x2": 3, "reorg_s2d": 1}),
-                "tiny": (tiny_config, {"maxpool2x2": 2})}
+# (every conv epilogue that no other kernel takes is one bias_leaky_nhwc call)
+EXPORT_PATHS = {"darknet": (darknet_config, {"bias_leaky_nhwc": 23}),
+                "mobilenet": (mobilenet_config, {"dwconv3x3": 4, "dwsep": 7,
+                                                 "bias_leaky_nhwc": 14}),
+                "darknet-s2d": (s2d_config, {"maxpool2x2": 3, "reorg_s2d": 1,
+                                             "bias_leaky_nhwc": 19}),
+                "tiny": (tiny_config, {"maxpool2x2": 2, "bias_leaky_nhwc": 7})}
 BASELINE1_ATOL = 1e-4       # BASELINE config 1, CPU against the card in f32: boxes
 RF_RTOL = 1e-3              # the effective receptive field, card against CPU in f32
 PRUNE_RATIO = 0.3
@@ -2265,7 +2441,9 @@ def host_detect(final: str) -> tuple[dict, dict]:
                                                     f"threshold {threshold} batch {i}")
                                     for i, x in enumerate(batches))
     launches = read_counters(counters)
-    want = per_batch(postprocess_fused=2 * len(batches))
+    # a forward for each of the two thresholds' fused and host calls a batch
+    want = per_batch(postprocess_fused=2 * len(batches),
+                     bias_leaky_nhwc=4 * len(batches) * DARKNET_EPILOGUES)
     if launches != want:
         raise AssertionError(f"deploy: detect_fn and detect_fn_host launched {launches}, "
                              f"expected {want}")
@@ -2422,7 +2600,7 @@ def prune_paths(final: str) -> tuple[dict, dict]:
     counters = zero_counters()
     outs = [run(folded, seeded_images(90 + i, 8)) for i in range(DEPLOY_BATCHES)]
     launches = read_counters(counters)
-    if launches != per_batch(postprocess_fused=DEPLOY_BATCHES) or not all(
+    if launches != scaled(DARKNET_LAUNCHES, DEPLOY_BATCHES) or not all(
             bool(torch.isfinite(t).all()) for o in outs for t in (o.yx_min, o.yx_max, o.conf)):
         raise AssertionError(f"prune: the pruned model's detect launched {launches}")
     result = {"ratio": PRUNE_RATIO, "weights_before": count(full), "weights_after": count(model),
@@ -2447,14 +2625,15 @@ def prune_paths(final: str) -> tuple[dict, dict]:
     _, _, pruned = build(pruned_cfg)
     folded = pruned.fold(p2, s2)
     pools = sum(channels[name] % 128 == 0 for name in ("c5", "c8", "c13"))
-    expect = per_batch(maxpool2x2=pools, reorg_s2d=1)
+    expect = per_batch(maxpool2x2=pools, reorg_s2d=1,
+                       bias_leaky_nhwc=DARKNET_EPILOGUES - pools - 1)
     x = seeded_images(91, 8)
     counters = zero_counters()
     with torch.inference_mode():
         got = pruned.apply_folded(folded, x)
     s2d_launches = read_counters(counters)
     with torch.inference_mode():
-        want = without(pruned, {"pool", "reorg"}).apply_folded(folded, x)
+        want = plain(without(pruned, {"pool", "reorg"}).apply_folded)(folded, x)
     if s2d_launches != expect:
         raise AssertionError(f"prune s2d: launched {s2d_launches}, the routing gives {expect}")
     if not torch.equal(bits(got), bits(want)):
@@ -2833,7 +3012,7 @@ def dist_eval(ranks, eval_result: dict) -> tuple[dict, dict]:
     """(d): eval across the ranks against phase 11's one-process f32 card
     eval; every rank's launches.  Returns (launches, numbers)."""
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
-    want = per_batch(postprocess_fused=batches)
+    want = scaled(DARKNET_LAUNCHES, batches)
     launches = dict.fromkeys(KERNELS, 0)
     for r in ranks:
         for dtype, got in r["eval"].items():
@@ -2980,7 +3159,8 @@ def gate_chain(card: str) -> tuple[dict, dict]:
     art = json.loads(out.read_text())
     test_images = min(max(100, GATE_IMAGES // 6), GATE_IMAGES // 2)   # generate_voc's split
     batches = math.ceil(test_images / 20)
-    want = per_batch(postprocess_fused=8 * batches, nms_select=batches)
+    want = per_batch(postprocess_fused=8 * batches, nms_select=batches,
+                     bias_leaky_nhwc=9 * batches * DARKNET_EPILOGUES)
     maps = art["map"]
     if (rc not in (0, 1) or len(maps) != 8
             or not all(np.isfinite(v) and 0 <= v <= 1 for v in maps.values())
@@ -3168,7 +3348,7 @@ def prune_phase(card: str) -> tuple[dict, dict]:
     dense = sum(d.out_ch for d in dense_model.layer_defs if d.name in channels)
     test_images = min(max(100, PRUNE_IMAGES // 6), PRUNE_IMAGES // 2)   # generate_voc's split
     batches = math.ceil(test_images / 20)
-    want = per_batch(postprocess_fused=len(PRUNE_EVALS) * batches)
+    want = scaled(DARKNET_LAUNCHES, len(PRUNE_EVALS) * batches)
     maps = {k: art[f"map_{k}_416"] for k in PRUNE_EVALS}
     if (rc not in (0, 1) or launches != want
             or art["eval_launches"] != {k: {"postprocess_fused": batches} for k in PRUNE_EVALS}
@@ -3203,23 +3383,26 @@ SUSTAINED_SECONDS = 10
 BENCH_DW = "nms,fusedpost,dwconv,dwsep"
 BENCH_POOL = "nms,fusedpost,pool"
 BENCH_FRESH_LATENCY = 3     # latency runs, each in a process of its own
-FUSED_ONLY = per_batch(postprocess_fused=1)
+# the bench's Tiny and MobileNet without their forward kernels: every conv's
+# epilogue on bias_leaky_nhwc
+BENCH_TINY = per_batch(postprocess_fused=1, bias_leaky_nhwc=9)
+BENCH_MOBILENET = per_batch(postprocess_fused=1, bias_leaky_nhwc=32)
 # (label, environment, kernel launches per detect call): each run is
 # ``python -m yolojax_torch.tools.bench``'s ``main`` under that environment
 BENCH_RUNS = [
-    ("infer darknet 416", {}, FUSED_ONLY),
-    ("infer darknet 320", {"BENCH_SIZE": "320"}, FUSED_ONLY),
-    ("infer darknet 608", {"BENCH_SIZE": "608"}, FUSED_ONLY),
-    ("infer tiny 416", {"BENCH_MODEL": "tiny"}, FUSED_ONLY),
-    ("infer mobilenet 416", {"BENCH_MODEL": "mobilenet"}, FUSED_ONLY),
-    ("infer darknet 416 nms", {"BENCH_PALLAS": "nms"}, per_batch(nms_select=1)),
+    ("infer darknet 416", {}, DARKNET_LAUNCHES),
+    ("infer darknet 320", {"BENCH_SIZE": "320"}, DARKNET_LAUNCHES),
+    ("infer darknet 608", {"BENCH_SIZE": "608"}, DARKNET_LAUNCHES),
+    ("infer tiny 416", {"BENCH_MODEL": "tiny"}, BENCH_TINY),
+    ("infer mobilenet 416", {"BENCH_MODEL": "mobilenet"}, BENCH_MOBILENET),
+    ("infer darknet 416 nms", {"BENCH_PALLAS": "nms"}, DARKNET_NMS_LAUNCHES),
     ("infer darknet 416 " + BENCH_POOL, {"BENCH_PALLAS": BENCH_POOL},
-     per_batch(postprocess_fused=1, maxpool2x2=3)),
+     per_batch(postprocess_fused=1, maxpool2x2=3, bias_leaky_nhwc=DARKNET_EPILOGUES - 3)),
     ("infer tiny 416 " + BENCH_POOL, {"BENCH_MODEL": "tiny", "BENCH_PALLAS": BENCH_POOL},
      TINY_LAUNCHES),
     ("infer mobilenet 416 " + BENCH_DW, {"BENCH_MODEL": "mobilenet", "BENCH_PALLAS": BENCH_DW},
      MOBILENET_LAUNCHES),
-    ("latency darknet 416", {"BENCH_MODE": "latency"}, FUSED_ONLY),
+    ("latency darknet 416", {"BENCH_MODE": "latency"}, DARKNET_LAUNCHES),
     ("train darknet 416 B=16", {"BENCH_MODE": "train", "BENCH_BATCH": "16"}, per_batch()),
     ("e2e darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16"}, per_batch()),
     ("e2e devdata darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16",
@@ -3337,7 +3520,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
         line, launches, seconds = bench_run(env)
         calls = {"infer": BENCH_WARM_CALLS + BENCH_ITERS,
                  "latency": BENCH_WARM_CALLS + max(BENCH_ITERS, 100)}.get(mode, 0)
-        want = {k: n * calls for k, n in per_call.items()}
+        want = scaled(per_call, calls)
         unit = "ms" if mode == "latency" else "images/sec"
         if (line.get("metric") != bench_metric(env) or line.get("unit") != unit
                 or not (math.isfinite(line.get("value", math.nan)) and line["value"] > 0)
@@ -3373,7 +3556,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     rec = json.loads(out.read_text())
-    want = per_batch(postprocess_fused=BENCH_WARM_CALLS + rec["dispatches"])
+    want = scaled(DARKNET_LAUNCHES, BENCH_WARM_CALLS + rec["dispatches"])
     if (rc != 0 or launches != want or rec["metric"] != "sustained_infer_416"
             or [json.loads(line) for line in printed.getvalue().splitlines()] != [rec]
             or not rec["window_rate_p5"] <= rec["window_rate_p50"] <= rec["window_rate_p95"]
@@ -3657,7 +3840,7 @@ def nodes_run(card: str) -> tuple[dict, dict]:
     ranks_s = time.perf_counter() - t0
     batches = -(-EVAL_IMAGES // global_batch)
     want_launches = {"train": per_batch(), "parity": per_batch(),
-                     "eval": per_batch(postprocess_fused=batches)}
+                     "eval": scaled(DARKNET_LAUNCHES, batches)}
     for r, rec in enumerate(ranks):
         want_env = {"RANK": str(r), "LOCAL_RANK": "0", "WORLD_SIZE": str(NODES),
                     "LOCAL_WORLD_SIZE": "1", "GROUP_RANK": str(r)}
@@ -3797,7 +3980,9 @@ def c80_run(card: str) -> tuple[dict, dict]:
     calls = {c80_fusedpost.KERNELS[r]: 2 + C80_ITERS + 1 + 10 + 1 + (
         6 + row[r]["post_device_how"].startswith("CUDA events") if TRAIN_DEVICE == "cuda" else 0)
         for r in per_call}
-    want = per_batch(**calls)
+    # forwards: a route's first, warm and timed calls and its post kernel's head, and
+    # one a route on the dense head
+    want = per_batch(**calls, bias_leaky_nhwc=DARKNET_EPILOGUES * (2 * (3 + C80_ITERS) + 2))
     dense = row["same_boxes_init_objectness"]
     if (rc != 0 or line["device"] != card or launches != want
             or any(row[r]["launches_per_call"] != per_call[r] for r in per_call)
@@ -3922,8 +4107,9 @@ def bench_all_run(card: str) -> tuple[dict, dict]:
     this process at BENCH_ITERS=BENCH_ALL_ITERS, each job's bench run as
     ``chip_smoke.py --bench-launches`` (the bench counting its launches):
     one artifact a job with the card and the launches, one fused decode+NMS
-    a detect call (2 warm calls and max(iters, 100) at B=1, 2 + iters for
-    Tiny).  Returns (launches, numbers)."""
+    and the forward's epilogues (23 Darknet-19, 9 Tiny) a detect call (2
+    warm calls and max(iters, 100) at B=1, 2 + iters for Tiny).  Returns
+    (launches, numbers)."""
     import io
     import os
 
@@ -3943,15 +4129,14 @@ def bench_all_run(card: str) -> tuple[dict, dict]:
         os.environ.pop("BENCH_ITERS")
         if saved[2] is not None:
             os.environ["BENCH_ITERS"] = saved[2]
-    calls = {"LATENCY": BENCH_WARM_CALLS + max(BENCH_ALL_ITERS, 100),
-             "TINY": BENCH_WARM_CALLS + BENCH_ALL_ITERS}
+    want = {"LATENCY": scaled(DARKNET_LAUNCHES, BENCH_WARM_CALLS + max(BENCH_ALL_ITERS, 100)),
+            "TINY": scaled(BENCH_TINY, BENCH_WARM_CALLS + BENCH_ALL_ITERS)}
     launches, numbers = dict.fromkeys(KERNELS, 0), {}
     for tag in BENCH_ALL_JOBS:
         path = out_dir / f"BENCH_{tag}_rsmoke.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
         got = [d["launches"] for d in rec.get("diagnostics", []) if "launches" in d]
-        if (rc != 0 or rec.get("device") != card or got != [per_batch(postprocess_fused=
-                                                                        calls[tag])]):
+        if rc != 0 or rec.get("device") != card or got != [want[tag]]:
             raise AssertionError(f"bench_all {tag}: exit {rc}, artifact {rec}; printed "
                                  f"{printed.getvalue()[-2000:]}")
         launches = {k: launches[k] + got[0][k] for k in KERNELS}
@@ -4010,26 +4195,32 @@ def main() -> None:
     cuda_tests()
     # each model's times right after its path, so Darknet's stay comparable
     # with runs that drive Darknet alone
-    dark_model, _, _, dark_folded, dark_run, dark_launches = darknet_path()
+    dark_model, dark_folded, dark_run, dark_launches = darknet_path()
+    epilogue_err = epilogue_vs_plain(dark_model, dark_folded, "darknet")
     dark_t = darknet_times(dark_model, dark_folded, dark_run, card)
     del dark_model, dark_folded, dark_run
     mob_model, mob_folded, mob_run, mob_launches = kernel_path(
         "mobilenet", mobilenet_config, MOBILENET_LAUNCHES, DW_TOKENS, exact=False)
+    epilogue_err = max(epilogue_err, epilogue_vs_plain(mob_model, mob_folded, "mobilenet"))
     dw_t = dw_times(card)
     detect_times(mob_model, mob_folded, mob_run, DW_TOKENS, "MobileNet", card)
     del mob_model, mob_folded, mob_run
     s2d_model, s2d_folded, s2d_run, s2d_launches = kernel_path(
         "darknet-s2d", s2d_config, S2D_LAUNCHES, {"pool", "reorg"}, exact=True)
+    epilogue_err = max(epilogue_err, epilogue_vs_plain(s2d_model, s2d_folded, "darknet-s2d"))
     fused_routing(s2d_model, s2d_folded, "darknet-s2d", {"pool", "reorg"}, 3, 1)
     nms_t = nms_times(s2d_model, s2d_folded, card)
     detect_times(s2d_model, s2d_folded, s2d_run, {"pool", "reorg"}, "Darknet-s2d", card)
     del s2d_model, s2d_folded, s2d_run
     tiny_model, tiny_folded, tiny_run, tiny_launches = kernel_path(
         "tiny", tiny_config, TINY_LAUNCHES, {"pool"}, exact=True)
+    epilogue_err = max(epilogue_err, epilogue_vs_plain(tiny_model, tiny_folded, "tiny"))
     fused_routing(tiny_model, tiny_folded, "tiny", {"pool"}, 2, 0)
     detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
     del tiny_model, tiny_folded, tiny_run
     layout_t = layout_times(card)
+    epilogue_t, times_err = epilogue_times(card)
+    err["bias_leaky_nhwc"] = max(epilogue_err, times_err)
     train_launches, train_result, final = train_phase(card)
     eval_launches, eval_result = eval_phase(card, final)
     deploy_launches, deploy_result = deploy_phase(card, final)
@@ -4048,7 +4239,8 @@ def main() -> None:
     # head, nms_select on Darknet-s2d's decoded head, dwconv3x3 and dwsep
     # summed over one MobileNet-416 forward's routed layers, maxpool2x2 over
     # one Darknet-416 forward's routed pools (fused, on the convs' raw
-    # outputs), reorg_s2d fused with c21's epilogue and the concat
+    # outputs), reorg_s2d fused with c21's epilogue and the concat,
+    # bias_leaky_nhwc on c1's (8, 416, 416, 32) output
     paths = (dark_launches, mob_launches, s2d_launches, tiny_launches, train_launches,
              eval_launches, deploy_launches, dist_launches, gate_launches, prune_launches,
              bench_launches, nodes_launches)
@@ -4059,13 +4251,15 @@ def main() -> None:
                                    "bound_by": fused["bound_by"]},
              "dwconv3x3": dw_t[("dwconv3x3", b)], "dwsep": dw_t[("dwsep", b)],
              "nms_select": nms_t[b], "maxpool2x2": layout_t[("maxpool2x2", "Darknet", b)],
-             "reorg_s2d": layout_t[("reorg_s2d", b)]}
+             "reorg_s2d": layout_t[("reorg_s2d", b)],
+             "bias_leaky_nhwc": epilogue_t[("c1", b)]}
     sources = {"postprocess_fused": ("postprocess_fused.cu", "yolojax/kernels/nms.py:247"),
                "dwconv3x3": ("dwconv3x3.cu", "yolojax/kernels/dwconv.py:65"),
                "dwsep": ("dwsep.cu", "yolojax/kernels/dwsep.py:104"),
                "nms_select": ("nms_select.cu", "yolojax/kernels/nms.py:118"),
                "maxpool2x2": ("maxpool2x2.cu", "yolojax/kernels/pool.py:40"),
-               "reorg_s2d": ("reorg_s2d.cu", "yolojax/kernels/reorg.py:38")}
+               "reorg_s2d": ("reorg_s2d.cu", "yolojax/kernels/reorg.py:38"),
+               "bias_leaky_nhwc": ("bias_leaky.cu", "yolojax/models/engine.py::_post_conv")}
     print(json.dumps({"train": train_result}), flush=True)
     print(json.dumps({"eval": eval_result}), flush=True)
     print(json.dumps({"deploy": deploy_result}), flush=True)

@@ -1,4 +1,4 @@
-"""The deploy paths on the card: the four forward kernels' custom ops
+"""The deploy paths on the card: the five forward kernels' custom ops
 (``kernels/ops.py``) in eager mode and through ``torch.export``, exported
 forwards replayed, and the host detect path (``detect_fn_host``: forward on
 the card, native NMS on the host) against ``detect_fn`` (the fused kernel).
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from yolojax_torch.cli.export import export_program
-from yolojax_torch.kernels import dwconv, dwsep, ops, pool, reorg
+from yolojax_torch.kernels import dwconv, dwsep, epilogue, ops, pool, reorg
 from yolojax_torch.models.darknet import Darknet, Tiny
 from yolojax_torch.models.inference import Inference
 from yolojax_torch.models.mobilenet import MobileNet
@@ -73,6 +73,8 @@ def _cases(rng, dtype):
         ("reorg_s2d", reorg.reorg_s2d, reorg.reorg_s2d_plain,
          (_t(rng, (4, 26, 26, 64), dtype), 2, _t(rng, (4, 13, 13, 1024), dtype),
           _t(rng, (64,), f32), True), True),
+        ("bias_leaky_nhwc", epilogue.bias_leaky_nhwc, epilogue.bias_leaky_nhwc_plain,
+         (conv, _t(rng, (512,), f32), True), True),
     ]
 
 
@@ -132,14 +134,16 @@ def _model(cls, pallas, dtype=torch.bfloat16, **kw):
     return model, model.fold(params, state)
 
 
-PATHS = {"darknet": (Darknet, {"nms", "fusedpost"}, {}, {}),
-         "tiny": (Tiny, {"nms", "fusedpost", "pool"}, {}, {"maxpool2x2": 2}),
+PATHS = {"darknet": (Darknet, {"nms", "fusedpost"}, {}, {"bias_leaky_nhwc": 23}),
+         "tiny": (Tiny, {"nms", "fusedpost", "pool"}, {},
+                  {"maxpool2x2": 2, "bias_leaky_nhwc": 7}),
          "darknet-s2d": (Darknet, {"nms", "pool", "reorg"}, {"reorg_order": "s2d"},
-                         {"maxpool2x2": 3, "reorg_s2d": 1}),
+                         {"maxpool2x2": 3, "reorg_s2d": 1, "bias_leaky_nhwc": 19}),
          "mobilenet": (MobileNet, {"nms", "fusedpost", "dwsep", "dwconv"}, {},
-                       {"dwconv3x3": 4, "dwsep": 7})}
+                       {"dwconv3x3": 4, "dwsep": 7, "bias_leaky_nhwc": 14})}
 COUNTERS = {"dwconv3x3": dwconv.dwconv3x3, "dwsep": dwsep.dwsep,
-            "maxpool2x2": pool.maxpool2x2, "reorg_s2d": reorg.reorg_s2d}
+            "maxpool2x2": pool.maxpool2x2, "reorg_s2d": reorg.reorg_s2d,
+            "bias_leaky_nhwc": epilogue.bias_leaky_nhwc}
 
 
 @pytest.mark.cuda

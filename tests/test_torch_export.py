@@ -29,14 +29,17 @@ from torch_port_families import ROOT, both, family_config, narrow_config
 from yolojax.ops.decode import decode_flat as jdecode_flat
 from yolojax.tools import onnx_export as jonnx
 from yolojax_torch.cli import export as texport
-from yolojax_torch.kernels import dwconv, dwsep, ops, pool, reorg
+from yolojax_torch.kernels import dwconv, dwsep, epilogue, ops, pool, reorg
 from yolojax_torch.ops.decode import decode_flat
 from yolojax_torch.tools import onnx_export
 
 # custom-op calls each path's export holds at 64² (every routed depthwise
-# layer of MobileNet takes dwsep at this size; with dwconv alone, dwconv)
-OPS_AT_64 = {"darknet": {}, "darknet-s2d": {"maxpool2x2": 3, "reorg_s2d": 1},
-             "tiny": {"maxpool2x2": 2}, "mobilenet": {"dwsep": 11}}
+# layer of MobileNet takes dwsep at this size; with dwconv alone, dwconv;
+# every other conv hands its epilogue to bias_leaky_nhwc)
+OPS_AT_64 = {"darknet": {"bias_leaky_nhwc": 23},
+             "darknet-s2d": {"maxpool2x2": 3, "reorg_s2d": 1, "bias_leaky_nhwc": 19},
+             "tiny": {"maxpool2x2": 2, "bias_leaky_nhwc": 7},
+             "mobilenet": {"dwsep": 11, "bias_leaky_nhwc": 10}}
 
 
 @pytest.mark.parametrize("b,h,w,a,c", [(2, 2, 2, 5, 20), (1, 4, 3, 2, 3), (3, 13, 13, 5, 80)])
@@ -65,7 +68,7 @@ def test_pt2_replay_matches_eager_and_jax(rng, tmp_path, family, mods):
     jmodel, (jp, js), model, (p, s) = both(config, rng)
     folded = model.fold(p, s)
     program = texport.export_program(model, folded, model.anchors, 64, batch=2)
-    want_ops = {"dwconv3x3": 11} if mods else OPS_AT_64[family]
+    want_ops = {"dwconv3x3": 11, "bias_leaky_nhwc": 21} if mods else OPS_AT_64[family]
     assert ops.op_counts(program.graph) == want_ops
     path = tmp_path / "inference_64.pt2"
     torch.export.save(program, path)
@@ -125,10 +128,12 @@ def _op_cases(rng):
         ("maxpool2x2", pool.maxpool2x2, (f(2, 6, 4, 8), f(8), False, False)),
         ("reorg_s2d", reorg.reorg_s2d, (f(2, 6, 4, 8), 2)),
         ("reorg_s2d", reorg.reorg_s2d, (f(2, 6, 4, 8), 2, f(2, 3, 2, 5), f(8), True)),
+        ("bias_leaky_nhwc", epilogue.bias_leaky_nhwc, (f(2, 6, 4, 8), f(8), True)),
+        ("bias_leaky_nhwc", epilogue.bias_leaky_nhwc, (f(1, 3, 5, 125), f(125), False)),
     ]
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(10))
 def test_custom_op_equals_its_wrapper_and_fakes_its_shapes(rng, case):
     name, wrapper, args = _op_cases(rng)[case]
     op = getattr(ops, name)
@@ -149,8 +154,9 @@ def _schema_args(name, args):
     """The wrapper's positional arguments completed with its defaults, in
     the op schema's order."""
     defaults = {"dwconv3x3": (1, True), "dwsep": (1, None), "maxpool2x2": (None, True, False),
-                "reorg_s2d": (2, None, None, True)}[name]
-    n_tensors = {"dwconv3x3": 3, "dwsep": 5, "maxpool2x2": 1, "reorg_s2d": 1}[name]
+                "reorg_s2d": (2, None, None, True), "bias_leaky_nhwc": (True,)}[name]
+    n_tensors = {"dwconv3x3": 3, "dwsep": 5, "maxpool2x2": 1, "reorg_s2d": 1,
+                 "bias_leaky_nhwc": 2}[name]
     return list(args) + list(defaults[len(args) - n_tensors:])
 
 

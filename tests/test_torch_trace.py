@@ -295,13 +295,15 @@ def test_spans_of_two_threads_keep_their_own_roots():
 
 def test_snapshot_reads_the_launch_counters():
     from yolojax_torch.kernels.dwsep import dwsep
+    from yolojax_torch.kernels.epilogue import bias_leaky_nhwc
     from yolojax_torch.kernels.postprocess_fused import postprocess_fused
 
     counters = trace.snapshot()["counters"]
     assert counters["dwsep"] == dwsep.launches
+    assert counters["bias_leaky_nhwc"] == bias_leaky_nhwc.launches
     assert counters["postprocess_fused"] == postprocess_fused.launches
     assert set(counters) == {"dwconv3x3", "dwsep", "maxpool2x2", "reorg_s2d",
-                             "postprocess_fused", "nms_select"}
+                             "bias_leaky_nhwc", "postprocess_fused", "nms_select"}
 
 
 def test_cuda_spans_time_on_the_roots_stream_and_resolve_in_the_snapshot(monkeypatch):

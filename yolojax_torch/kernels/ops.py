@@ -1,4 +1,4 @@
-"""The four forward kernels as ``torch.library`` custom ops, for
+"""The five forward kernels as ``torch.library`` custom ops, for
 ``torch.export``.
 
 ``torch.export`` traces with fake tensors, and a wrapper's launch reads
@@ -12,7 +12,9 @@ which the exported program calls by name:
 * ``yolojax_torch::maxpool2x2`` — ``kernels/pool.py::maxpool2x2``, two
   outputs: the pooled tensor and, with ``full``, the epilogue output (an
   empty tensor without);
-* ``yolojax_torch::reorg_s2d`` — ``kernels/reorg.py::reorg_s2d``.
+* ``yolojax_torch::reorg_s2d`` — ``kernels/reorg.py::reorg_s2d``;
+* ``yolojax_torch::bias_leaky_nhwc`` —
+  ``kernels/epilogue.py::bias_leaky_nhwc``.
 
 An op's implementation is its wrapper: on a CUDA tensor the hand-written
 kernel's launch (counted in the wrapper's ``launches``), on a CPU tensor the
@@ -32,9 +34,9 @@ from __future__ import annotations
 
 import torch
 
-from . import dwconv, dwsep as dwsep_k, pool, reorg
+from . import dwconv, dwsep as dwsep_k, epilogue, pool, reorg
 
-__all__ = ["dwconv3x3", "dwsep", "maxpool2x2", "reorg_s2d", "op_counts"]
+__all__ = ["dwconv3x3", "dwsep", "maxpool2x2", "reorg_s2d", "bias_leaky_nhwc", "op_counts"]
 
 
 @torch.library.custom_op("yolojax_torch::dwconv3x3", mutates_args=(),
@@ -91,6 +93,17 @@ def _(x, stride, tail, bias, act):
     return x.new_empty((b, h // stride, w // stride, stride * stride * c + ct))
 
 
+@torch.library.custom_op("yolojax_torch::bias_leaky_nhwc", mutates_args=(),
+                         schema="(Tensor x, Tensor bias, bool act) -> Tensor")
+def _bias_leaky_nhwc(x, bias, act):
+    return epilogue.bias_leaky_nhwc(x, bias, act)
+
+
+@_bias_leaky_nhwc.register_fake
+def _(x, bias, act):
+    return x.new_empty(x.shape)
+
+
 def op_counts(graph) -> dict[str, int]:
     """Calls of this module's ops in an exported ``torch.fx`` graph, by kernel
     name (a target reads ``yolojax_torch.<name>.default``)."""
@@ -120,3 +133,7 @@ def maxpool2x2(x, bias=None, act: bool = True, full: bool = False):
 
 def reorg_s2d(x, stride: int = 2, tail=None, bias=None, act: bool = True):
     return torch.ops.yolojax_torch.reorg_s2d(x, stride, tail, bias, act)
+
+
+def bias_leaky_nhwc(x, bias, act: bool = True):
+    return torch.ops.yolojax_torch.bias_leaky_nhwc(x, bias, act)

@@ -25,8 +25,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..models.blocks import bias_leaky
 from . import _build
+from .epilogue import bias_leaky_nhwc_plain
 
 __all__ = ["maxpool2x2", "maxpool2x2_plain", "build", "SOURCE"]
 
@@ -44,18 +44,13 @@ def build():
     return _build.build(SOURCE)
 
 
-def _epilogue(x, bias, act):
-    """``bias_leaky`` on an NHWC tensor (it takes NCHW), returned NHWC."""
-    return bias_leaky(x.permute(0, 3, 1, 2), bias, act).permute(0, 2, 3, 1).contiguous()
-
-
 def maxpool2x2_plain(x: torch.Tensor, bias: torch.Tensor | None = None, act: bool = True,
                      full: bool = False):
     """The plain version: ``bias_leaky`` when ``bias`` is given, then
     ``F.max_pool2d`` on the NCHW view; contiguous NHWC tensors.  Same
     arguments and results as :func:`maxpool2x2`."""
     if bias is not None:
-        x = _epilogue(x, bias, act)
+        x = bias_leaky_nhwc_plain(x, bias, act)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1).contiguous()
     return (y, x) if full else y
 

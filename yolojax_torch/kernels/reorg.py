@@ -21,9 +21,9 @@ import ctypes
 
 import torch
 
-from ..models.blocks import bias_leaky
 from ..ops import reorg as plain
 from . import _build
+from .epilogue import bias_leaky_nhwc_plain
 
 __all__ = ["reorg_s2d", "reorg_s2d_plain", "build", "SOURCE"]
 
@@ -47,7 +47,7 @@ def reorg_s2d_plain(x: torch.Tensor, stride: int = 2, tail: torch.Tensor | None 
     view chain, then ``torch.cat`` with ``tail``.  Same arguments as
     :func:`reorg_s2d`."""
     if bias is not None:
-        x = bias_leaky(x.permute(0, 3, 1, 2), bias, act).permute(0, 2, 3, 1)
+        x = bias_leaky_nhwc_plain(x, bias, act)
     y = plain.reorg_s2d(x, stride)
     return y if tail is None else torch.cat([y, tail], dim=-1)
 

@@ -40,6 +40,11 @@ Where routing goes further than the JAX engine's:
   output into the slot); a conv followed by a routed reorg does the same with
   the reorg kernel, which also writes the ``concat`` right after it.  Both
   compute what the unfused ops compute, bit for bit;
+* a conv whose epilogue no kernel takes runs it in the one-pass epilogue
+  kernel (``kernels/epilogue.py``), bit for bit ``blocks.bias_leaky``'s
+  result, under no ``[model] pallas`` token: the counterpart of the epilogue
+  that XLA always fuses into the JAX engine's conv.  On the CPU the wrapper
+  runs ``bias_leaky`` itself, and the unfolded path never reaches it;
 * while ``torch.export`` traces, the routed layers call the kernels' custom
   ops (``kernels/ops.py``), which carry the same launches into the exported
   program; the eager forward calls the wrappers directly;
@@ -61,13 +66,14 @@ import torch
 
 from ..kernels import dwconv as dwconv_k
 from ..kernels import dwsep as dwsep_k
+from ..kernels import epilogue as epilogue_k
 from ..kernels import ops as kernel_ops
 from ..kernels import pool as pool_k
 from ..kernels import reorg as reorg_k
 from ..ops.reorg import reorg
 from ..utils.trace import span
 from . import LayerDef, kernel_active
-from .blocks import BNConfig, bias_leaky, conv, conv_apply, fold_bn, max_pool
+from .blocks import BNConfig, conv, conv_apply, fold_bn, max_pool
 
 __all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights"]
 
@@ -151,12 +157,14 @@ def _after_conv(plan, i):
 
 
 def _launchers():
-    """The four forward kernels' entry points (dwconv3x3, dwsep, maxpool2x2,
-    reorg_s2d): their custom ops while ``torch.export`` traces, the wrappers
-    otherwise."""
+    """The five forward kernels' entry points (dwconv3x3, dwsep, maxpool2x2,
+    reorg_s2d, bias_leaky_nhwc): their custom ops while ``torch.export``
+    traces, the wrappers otherwise."""
     if torch.compiler.is_exporting():
-        return kernel_ops.dwconv3x3, kernel_ops.dwsep, kernel_ops.maxpool2x2, kernel_ops.reorg_s2d
-    return dwconv_k.dwconv3x3, dwsep_k.dwsep, pool_k.maxpool2x2, reorg_k.reorg_s2d
+        return (kernel_ops.dwconv3x3, kernel_ops.dwsep, kernel_ops.maxpool2x2,
+                kernel_ops.reorg_s2d, kernel_ops.bias_leaky_nhwc)
+    return (dwconv_k.dwconv3x3, dwsep_k.dwsep, pool_k.maxpool2x2, reorg_k.reorg_s2d,
+            epilogue_k.bias_leaky_nhwc)
 
 
 def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None = None,
@@ -185,7 +193,7 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
     use_dwsep = kernel_active("dwsep", pallas)
     use_pool_k = kernel_active("pool", pallas)
     use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
-    dwconv3x3, dwsep, maxpool2x2, reorg_s2d = _launchers()
+    dwconv3x3, dwsep, maxpool2x2, reorg_s2d, bias_leaky_nhwc = _launchers()
     slots = {}
     with span("yolojax_torch.plan.layout"):
         x = x.to(compute_dtype).permute(0, 3, 1, 2)
@@ -233,7 +241,8 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
                 resume = j + 1 if cat is None else j + 2
             else:
                 with span("yolojax_torch.plan.epilogue", layer=d.name):
-                    x = bias_leaky(y, p["b"], d.act)
+                    x = bias_leaky_nhwc(y.permute(0, 2, 3, 1), p["b"],
+                                        d.act).permute(0, 3, 1, 2)
         elif kind == "pool":
             with span("yolojax_torch.plan.pool"):
                 if use_pool_k and _pool_routable(x, op[1], op[2]):

@@ -143,10 +143,11 @@ def reset() -> None:
 def _launch_counters() -> dict:
     from ..kernels.dwconv import dwconv3x3
     from ..kernels.dwsep import dwsep
+    from ..kernels.epilogue import bias_leaky_nhwc
     from ..kernels.nms import nms_select
     from ..kernels.pool import maxpool2x2
     from ..kernels.postprocess_fused import postprocess_fused
     from ..kernels.reorg import reorg_s2d
 
     return {f.__name__: f.launches for f in (dwconv3x3, dwsep, maxpool2x2, reorg_s2d,
-                                             postprocess_fused, nms_select)}
+                                             bias_leaky_nhwc, postprocess_fused, nms_select)}
