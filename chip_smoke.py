@@ -46,7 +46,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
      densities, boxes broadcast over the classes and one box row per class,
      max_out 100 (and 300 at 19×19): idx, conf and valid identical; then the
      postprocess with its gather against the plain one;
-   * maxpool2x2 and reorg_s2d — the five routed pool shapes at batch 8, c21's
+   * maxpool2x2 and reorg_s2d — the ten routed pool shapes at batch 8
+     (Darknet-19's and Tiny's five conv → pool pairs each at 416), c21's
      (8,26,26,64) with the (8,13,13,1024) top, C = 3, 36 and 72, tails of 5
      to 16 channels and 2×2 inputs, f32 and bf16, inputs with NaN, ±inf and
      signed zeros: the bare kernels and their fused modes (the conv's bias +
@@ -59,14 +60,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
    bf16, built from ``config.ini`` with a seeded fresh init (objectness bias
    −6, the bench density), through ``Inference.detect_fn(0.005, 0.45, 100)``
    on batches of 8; every launch counter is set to 0 just before and read
-   just after, and must show one fused launch and 23 of the one-pass
-   epilogue (``bias_leaky_nhwc``, every conv's) per batch and nothing else;
+   just after, and must show one fused launch, 5 ``maxpool2x2`` (c1, c2,
+   c5, c8 and c13 with their pools, each with its conv's epilogue) and 18 of
+   the one-pass epilogue (``bias_leaky_nhwc``, every other conv's) per batch
+   and nothing else;
    the outputs must be finite and ``keep`` must match the plain postprocess
    of the same raw head; every epilogue call of one forward, on the conv
    output it is handed, bit-identical to ``bias_leaky`` (six torch ops) on
    the same tensor; the raw head bit-identical to the same forward with
-   ``bias_leaky`` in place of the kernel, in f32 (TF32 off) and, where
-   cuDNN allows, in bf16, as for Darknet-s2d; then
+   ``bias_leaky`` in place of the kernel and ``maxpool2x2_plain`` in place of
+   the pool kernel (the plain path), in f32 (TF32 off) and, where cuDNN
+   allows, in bf16, as for Darknet-s2d; then
    ``cli.detect.detect_image`` on one seeded 480×640 image;
 6. MobileNet main path — full-width MobileNet-YOLOv2 at 416 from
    ``config.ini`` + ``config/mobilenet.ini`` with ``pallas = nms fusedpost
@@ -79,18 +83,19 @@ Phases, each of which passes or raises (any failure exits non-zero):
    diff ≤ 1 % of mean |raw|; then ``detect_image``;
 7. Darknet-s2d main path — Darknet-19 from ``config.ini`` with ``reorg =
    s2d`` and ``pallas = nms pool reorg``, the same init, density and
-   checks: nms_select 1, maxpool2x2 3, reorg_s2d 1 and bias_leaky_nhwc 19
+   checks: nms_select 1, maxpool2x2 5, reorg_s2d 1 and bias_leaky_nhwc 17
    launches per batch; the dense batch; the raw head bit-identical to the
-   plain path (without ``pool reorg``, ``bias_leaky`` for the epilogues) in
+   plain path (without ``pool reorg``, ``bias_leaky`` for the epilogues,
+   ``maxpool2x2_plain`` for the conv → pool pairs) in
    f32 (TF32 off) and, where cuDNN allows, in bf16 (else within MobileNet's
-   1 % bound, said so); a CUDA graph capture of one forward: the three
+   1 % bound, said so); a CUDA graph capture of one forward: the five
    pools and the reorg run their fused (bias) instantiations, and the
    device kernels per forward with the path's kernels and on the plain
    path; ``torch.profiler``'s host ops: no ``aten::cat``; then
    ``detect_image``;
 8. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
-   with ``pallas = nms fusedpost pool``: maxpool2x2 2 (fused),
-   bias_leaky_nhwc 7 and fused decode+NMS 1 launch per batch, a
+   with ``pallas = nms fusedpost pool``: maxpool2x2 5 (fused),
+   bias_leaky_nhwc 4 and fused decode+NMS 1 launch per batch, a
    (B,13,13,125) raw head, the dense batch, the raw head against the plain
    path (without ``pool``) as for Darknet-s2d, ``detect_image``;
 9. times (each model's right after its path) — CUDA events, warm-up, median
@@ -104,7 +109,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
    over the peak of their type, from this run's inputs; dwsep's layers also
    as TFLOP/s), and detect images/s of each path and of its plain path
    (without its forward kernels, ``bias_leaky`` for the one-pass
-   epilogue); the one-pass epilogue at c1's and c20's shapes against
+   epilogue, ``maxpool2x2_plain`` for the conv → pool pairs), and each
+   routed pool's device µs at batch 128 in a CUDA graph of 20 back-to-back
+   calls beside its bytes bound; the one-pass epilogue at c1's and c20's
+   shapes against
    ``bias_leaky`` (six torch ops; the outputs bit-identical), and a call's
    device µs in a CUDA graph of back-to-back calls, which at batch 128 must
    reach 80 % (c1) and 65 % (c20) of 3.35 TB/s;
@@ -152,7 +160,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    path) against the card's, the same classes and boxes within 1e-4, and
    the CPU path's time for one image; ``cli/export.py::export_program`` of
    the four paths at 416, B=8, saved, with the custom-op calls each routes
-   (MobileNet dwconv 4, dwsep 7; Darknet-s2d pool 3, reorg 1; Tiny pool 2),
+   (MobileNet dwconv 4, dwsep 7; Darknet pool 5; Darknet-s2d pool 5, reorg
+   1; Tiny pool 5),
    replayed in one child process (``import yolojax_torch.kernels.ops``,
    ``torch.export.load``) bit-identical to the eager forward + decode, with
    those launches counted; the ONNX export of Darknet's card weights passes
@@ -216,11 +225,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
    ``pass`` is printed, not required.  Prints ``{"prune_gate": {...}}`` and
    the phase's wall time;
 16. the bench — ``python -m yolojax_torch.tools.bench``'s ``main`` in this
-   process with its stdout captured, BENCH_ITERS=5, under fourteen
+   process with its stdout captured, BENCH_ITERS=5, under twelve
    environments: ``infer`` at B=128 for Darknet-19 at 416, 320 and 608, Tiny
    and MobileNet at 416, Darknet-19 with ``BENCH_PALLAS=nms``, MobileNet
-   with ``nms,fusedpost,dwconv,dwsep``, Darknet-19 and Tiny with
-   ``nms,fusedpost,pool``; ``latency``; ``train`` at B=16;
+   with ``nms,fusedpost,dwconv,dwsep``; ``latency``; ``train`` at B=16;
    ``e2e`` at B=16 through the loader and the device dataset and
    ``pipeline``, where OpenCV imports (where it does not, these runs must
    refuse naming cv2, and the phase says they did not run).  Each prints
@@ -229,7 +237,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
    launch counter set to 0 just before and read just after launches its
    path's kernels once per detect call: the fused decode+NMS on the default
    routes, nms_select under ``nms``, MobileNet's 4 dwconv3x3 and 7 dwsep
-   besides, Darknet-19's 3 and Tiny's 2 maxpool2x2 under ``pool``; train,
+   besides, Darknet-19's and Tiny's 5 maxpool2x2 on every route; train,
    e2e and pipeline none.  The latency run again in 3 processes of its own
    (B=1 is host-bound and reads the host's state).  Then ``python -m
    yolojax_torch.tools.sustained_bench`` for 10 s: one fused launch per
@@ -272,8 +280,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    and the 28 269-wide linear head, 544, bf16, random weights with the
    head's class rows ×8 so walks go a few groups deep and objectness bias
    -2.5) through ``Inference.detect_fn`` at B=8, 8 and 128, every launch
-   counter set to 0 just before: per call 19 ``bias_leaky_nhwc`` (c1-c18
-   and the head; the route leaves the pools unrouted) and 2 ``tree_decode``
+   counter set to 0 just before: per call 5 ``maxpool2x2`` (c1, c2, c5, c8
+   and c13 with their pools), 14 ``bias_leaky_nhwc`` (the other convs and
+   the head) and 2 ``tree_decode``
    (the walk, the NMS); each call's picks held to
    ``ops/tree.py::tree_postprocess`` on the raw head it decoded, its raw
    head to the plain path's (``raw_vs_without``), then ``detect_image``;
@@ -295,8 +304,9 @@ bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
 Wherever a phase counts launches it counts the one-pass epilogue's
 (``bias_leaky_nhwc``) too: one for each conv of a folded forward whose
-epilogue no pool, reorg or depthwise kernel takes (23 a Darknet-19 forward
-without the pool kernel), none in a train step.
+epilogue no pool, reorg or depthwise kernel takes (18 a Darknet-19 forward,
+whose five conv → pool pairs launch ``maxpool2x2`` on every route), none in
+a train step.
 Times are information, not a benchmark.  The train step runs no
 hand-written kernel (the JAX package trains with every Pallas kernel off);
 the detect on its checkpoint runs the fused decode+NMS and the one-pass
@@ -317,6 +327,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from yolojax_torch.tools.kernel_times import POOLS as KERNEL_TIMES_POOLS
 
 ROOT = Path(__file__).resolve().parent
 THRESHOLD, OVERLAP, TOPK = 0.005, 0.45, 100
@@ -339,10 +351,9 @@ DWCONV_LAYERS = [(1, 104, 128, 128, 1), (1, 104, 128, 128, 2), (1, 52, 256, 256,
                  (1, 52, 256, 256, 2)]
 DWSEP_LAYERS = [(5, 26, 512, 512, 1), (1, 26, 512, 1024, 2), (1, 13, 1024, 1024, 1)]
 # routed pools per forward, (H, C) of the raw conv output before each and whether its
-# full epilogue output is kept (c13's, for the passthrough): Darknet's c5, c8 and c13
-# before pool3-pool5, Tiny's c4 and c5 before pool4-pool5
-DARKNET_POOLS = [(104, 128, False), (52, 256, False), (26, 512, True)]
-TINY_POOLS = [(52, 128, False), (26, 256, False)]
+# full epilogue output is kept (c13's, for the passthrough): every conv → 2×2/2 pair,
+# Darknet's c1, c2, c5, c8 and c13 before pool1-pool5, Tiny's c1-c5
+DARKNET_POOLS, TINY_POOLS = KERNEL_TIMES_POOLS["Darknet"], KERNEL_TIMES_POOLS["Tiny"]
 REORG_SHAPE = (26, 64)      # c21's output at 416: (B, 26, 26, 64) -> (B, 13, 13, 256)
 REORG_TAIL = 1024           # the passthrough's top, (B, 13, 13, 1024), concatenated after it
 # the one-pass epilogue's timed conv outputs at 416, (H, C), and the share of the
@@ -364,21 +375,26 @@ def scaled(per_call: dict, n: int) -> dict:
     return {name: count * n for name, count in per_call.items()}
 
 
-# convs of a Darknet-19 forward, each one's epilogue on bias_leaky_nhwc where no
-# routed pool or reorg takes it
-DARKNET_EPILOGUES = 23
+# the conv → 2×2/2 pairs of a Darknet-19 forward (c1, c2, c5, c8, c13), each on
+# maxpool2x2 with its conv's epilogue on every route, and the 18 other convs, each
+# one's epilogue on bias_leaky_nhwc where no reorg kernel takes it
+DARKNET_PAIRS = len(DARKNET_POOLS)
+DARKNET_EPILOGUES = 23 - DARKNET_PAIRS
 # kernel launches per detect_fn batch on each main path; bias_leaky_nhwc: each conv
 # whose epilogue no pool, reorg or depthwise kernel takes (MobileNet: 32 convs, 18
-# of them on dwconv3x3 or dwsep; Tiny: 9, 2 on maxpool2x2)
-DARKNET_LAUNCHES = per_batch(postprocess_fused=1, bias_leaky_nhwc=DARKNET_EPILOGUES)
+# of them on dwconv3x3 or dwsep; Tiny: 9, 5 on maxpool2x2)
+DARKNET_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=DARKNET_PAIRS,
+                             bias_leaky_nhwc=DARKNET_EPILOGUES)
 MOBILENET_LAUNCHES = per_batch(postprocess_fused=1, dwconv3x3=4, dwsep=7, bias_leaky_nhwc=14)
-S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=3, reorg_s2d=1, bias_leaky_nhwc=19)
-TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=2, bias_leaky_nhwc=7)
+S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=DARKNET_PAIRS, reorg_s2d=1,
+                         bias_leaky_nhwc=DARKNET_EPILOGUES - 1)
+TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=len(TINY_POOLS), bias_leaky_nhwc=4)
 # Darknet-19 with pallas = nms: nms_select in place of the fused kernel
-DARKNET_NMS_LAUNCHES = per_batch(nms_select=1, bias_leaky_nhwc=DARKNET_EPILOGUES)
-# YOLO9000 on config.ini's route: c1-c18 and the head on bias_leaky_nhwc (its five
-# pools unrouted), then the tree walk and the per-node NMS
-YOLO9000_LAUNCHES = per_batch(bias_leaky_nhwc=19, tree_decode=2)
+DARKNET_NMS_LAUNCHES = per_batch(nms_select=1, maxpool2x2=DARKNET_PAIRS,
+                                 bias_leaky_nhwc=DARKNET_EPILOGUES)
+# YOLO9000 on config.ini's route: Darknet-19's five pairs on maxpool2x2, its other 13
+# convs and the head on bias_leaky_nhwc, then the tree walk and the per-node NMS
+YOLO9000_LAUNCHES = per_batch(maxpool2x2=DARKNET_PAIRS, bias_leaky_nhwc=14, tree_decode=2)
 # kernel-vs-plain cases beyond the routed shapes: odd spatial sizes, C % 128 != 0
 # (2, 37, ...): the last 16-row tile of the 37 output rows holds 5; (1, 400, ...) and
 # (1, 600, ...) walk each row in two column tiles
@@ -956,15 +972,22 @@ def without(model, tokens: set):
 
 
 @contextlib.contextmanager
-def epilogue_as(fn):
+def epilogue_as(fn, pool=None):
     """While inside, the engine's conv epilogues that no other kernel takes
-    call ``fn(x, bias, act)`` in place of ``kernels/epilogue.py``'s wrapper:
-    the last of the entry points ``engine._launchers`` hands each forward.
-    The wrapper itself is left as it is (it counts its launches on itself)."""
+    call ``fn(x, bias, act)`` in place of ``kernels/epilogue.py``'s wrapper,
+    and with ``pool`` its pools call ``pool`` in place of
+    ``kernels/pool.py``'s: two of the entry points ``engine._launchers``
+    hands each forward.  The wrappers themselves are left as they are (each
+    counts its launches on itself)."""
     from yolojax_torch.models import engine
 
     launchers = engine._launchers
-    engine._launchers = lambda: (*launchers()[:-1], fn)
+
+    def patched():
+        dw, sep, maxpool, reorg, _ = launchers()
+        return dw, sep, pool or maxpool, reorg, fn
+
+    engine._launchers = patched
     try:
         yield
     finally:
@@ -973,11 +996,19 @@ def epilogue_as(fn):
 
 def plain_epilogue():
     """While inside, those epilogues run as ``bias_leaky`` (six torch ops, a
-    pass each) in place of the one-pass kernel: with :func:`without`, the
-    plain path."""
+    pass each) in place of the one-pass kernel, and the conv → pool pairs as
+    ``maxpool2x2_plain`` (``bias_leaky`` then ``F.max_pool2d``) in place of
+    the pool kernel: with :func:`without`, the plain path."""
     from yolojax_torch.kernels.epilogue import bias_leaky_nhwc_plain
+    from yolojax_torch.kernels.pool import maxpool2x2_plain
 
-    return epilogue_as(bias_leaky_nhwc_plain)
+    return epilogue_as(bias_leaky_nhwc_plain, maxpool2x2_plain)
+
+
+def plain_label(drop: set) -> str:
+    """What the plain path runs without: the tokens ``drop`` and the two
+    kernels :func:`plain_epilogue` replaces."""
+    return " ".join([*sorted(drop), "bias_leaky_nhwc", "maxpool2x2"])
 
 
 def plain(fn):
@@ -1027,7 +1058,7 @@ def raw_vs_without(model, folded, config_fn, drop: set, what: str, exact: bool,
     abs diff ≤ 1 % of mean |raw|, f32 rtol/atol 1e-3.  Images at ``size``."""
     from yolojax_torch.cli.common import build, load_weights_auto
 
-    label = " ".join([*sorted(drop), "bias_leaky_nhwc"])
+    label = plain_label(drop)
     x = seeded_images(5, 8, size)
     with torch.inference_mode():
         got = model.apply_folded(folded, x)
@@ -1225,7 +1256,7 @@ def detect_times(model, folded, run, drop: set, name: str, card: str) -> dict:
                      "plain_detect_ms": t_plain, "plain_img_per_s": b / (t_plain / 1e3)}
         log(f"[time] {card} | {name} detect batch {b} at {SIZE}: with {sorted(model.pallas)} "
             f"{t_kernel:.3f} ms = {result[b]['img_per_s']:.1f} img/s; without "
-            f"{' '.join([*sorted(drop), 'bias_leaky_nhwc'])} {t_plain:.3f} ms = "
+            f"{plain_label(drop)} {t_plain:.3f} ms = "
             f"{result[b]['plain_img_per_s']:.1f} img/s (median of 8 / 8)")
     return result
 
@@ -1265,7 +1296,10 @@ def layout_times(card: str) -> dict:
     plain version (``bias_leaky`` then ``F.max_pool2d``: torch's own ops, no
     kernel of the port) and against ``F.max_pool2d`` alone on the epilogue
     output (the one PyTorch call that computes the TPU kernel's function),
-    summed per Darknet and per Tiny forward; and the fused reorg + concat at
+    summed per Darknet and per Tiny forward, and each call's device µs in a
+    CUDA graph of back-to-back calls (:func:`graph_us`) beside its bound (a
+    batch-8 input that stays in L2 between the calls can beat it); and the
+    fused reorg + concat at
     c21's shape against its plain version (``bias_leaky``, the view chain,
     ``torch.cat``).  The bound counts the bytes each fused call must move."""
     import torch.nn.functional as F
@@ -1292,6 +1326,8 @@ def layout_times(card: str) -> dict:
                     lambda: F.max_pool2d(y, 2, 2))
                 for key, t in zip(total, (t_kernel, t_plain, t_lib)):
                     total[key] += t
+                calls = 20
+                device_us = graph_us(lambda: maxpool2x2(x, bias, True, full), calls)
                 # bytes: the raw output and the bias read, the pooled output (and
                 # the full one) written; operations: the epilogue (an add, a
                 # compare, a multiply) per element and three compares per output
@@ -1300,10 +1336,11 @@ def layout_times(card: str) -> dict:
                 layer = Bound().add(*work)
                 bound.add(*work)
                 log(f"[time] {card} | maxpool2x2 fused ({b},{h},{h},{c}){' + full' * full} bf16: "
-                    f"kernel {t_kernel:.4f} ms = {moved / 1e9 / (t_kernel / 1e3):.0f} GB/s, "
-                    f"{100 * layer.total / t_kernel:.1f} % of its bound {layer.total:.4f} ms; "
-                    f"plain (bias_leaky + F.max_pool2d) {t_plain:.4f} ms, F.max_pool2d alone "
-                    f"{t_lib:.4f} ms (median of 8 / 8)")
+                    f"kernel {t_kernel:.4f} ms, device {device_us:.1f} us a call in a graph of "
+                    f"{calls} = {moved / 1e3 / device_us:.0f} GB/s, "
+                    f"{100 * layer.total * 1e3 / device_us:.1f} % of its bound "
+                    f"{layer.total:.4f} ms ({layer.by}); plain (bias_leaky + F.max_pool2d) "
+                    f"{t_plain:.4f} ms, F.max_pool2d alone {t_lib:.4f} ms (median of 8 / 8)")
             result[("maxpool2x2", model_name, b)] = dict(total, bound_ms=bound.total,
                                                          bound_by=bound.by)
             log(f"[time] {card} | maxpool2x2 per {model_name}-416 forward at batch {b}: kernel "
@@ -1506,7 +1543,7 @@ def profile(card: str, path: str) -> None:
         Inference(model).detect_fn(THRESHOLD, OVERLAP, TOPK)(folded, x)
         torch.cuda.synchronize()
     runs = [(" ".join(sorted(model.pallas)), Inference(model).detect_fn(THRESHOLD, OVERLAP, TOPK)),
-            (f"without {' '.join([*sorted(drop), 'bias_leaky_nhwc'])}",
+            (f"without {plain_label(drop)}",
              plain(Inference(without(model, drop)).detect_fn(THRESHOLD, OVERLAP, TOPK)))]
     for what, run in runs:
         for _ in range(3):
@@ -1568,7 +1605,7 @@ def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) 
     log(f"[{what}] one batch-8 forward: {pools} maxpool2x2 and {reorgs} reorg_s2d launches, "
         f"all with the conv's epilogue, no aten::cat; {counts['with']} per forward in a "
         f"graph capture ({counts['without']} on the plain path: without "
-        f"{' '.join([*sorted(drop), 'bias_leaky_nhwc'])})")
+        f"{plain_label(drop)})")
 
 
 def cuda_tests() -> None:
@@ -2353,12 +2390,12 @@ DEPLOY_DIR = ROOT / "build" / "chip_smoke_deploy"   # git-ignored: programs, pru
 DEPLOY_BATCHES = 3
 # the four paths the export takes, with the custom-op calls each program holds at 416
 # (every conv epilogue that no other kernel takes is one bias_leaky_nhwc call)
-EXPORT_PATHS = {"darknet": (darknet_config, {"bias_leaky_nhwc": 23}),
+EXPORT_PATHS = {"darknet": (darknet_config, {"maxpool2x2": 5, "bias_leaky_nhwc": 18}),
                 "mobilenet": (mobilenet_config, {"dwconv3x3": 4, "dwsep": 7,
                                                  "bias_leaky_nhwc": 14}),
-                "darknet-s2d": (s2d_config, {"maxpool2x2": 3, "reorg_s2d": 1,
-                                             "bias_leaky_nhwc": 19}),
-                "tiny": (tiny_config, {"maxpool2x2": 2, "bias_leaky_nhwc": 7})}
+                "darknet-s2d": (s2d_config, {"maxpool2x2": 5, "reorg_s2d": 1,
+                                             "bias_leaky_nhwc": 17}),
+                "tiny": (tiny_config, {"maxpool2x2": 5, "bias_leaky_nhwc": 4})}
 BASELINE1_ATOL = 1e-4       # BASELINE config 1, CPU against the card in f32: boxes
 RF_RTOL = 1e-3              # the effective receptive field, card against CPU in f32
 PRUNE_RATIO = 0.3
@@ -2471,6 +2508,7 @@ def host_detect(final: str) -> tuple[dict, dict]:
     launches = read_counters(counters)
     # a forward for each of the two thresholds' fused and host calls a batch
     want = per_batch(postprocess_fused=2 * len(batches),
+                     maxpool2x2=4 * len(batches) * DARKNET_PAIRS,
                      bias_leaky_nhwc=4 * len(batches) * DARKNET_EPILOGUES)
     if launches != want:
         raise AssertionError(f"deploy: detect_fn and detect_fn_host launched {launches}, "
@@ -2652,9 +2690,7 @@ def prune_paths(final: str) -> tuple[dict, dict]:
     pruned_cfg.set("model", "channels", str(DEPLOY_DIR / "s2d_channels.json"))
     _, _, pruned = build(pruned_cfg)
     folded = pruned.fold(p2, s2)
-    pools = sum(channels[name] % 128 == 0 for name in ("c5", "c8", "c13"))
-    expect = per_batch(maxpool2x2=pools, reorg_s2d=1,
-                       bias_leaky_nhwc=DARKNET_EPILOGUES - pools - 1)
+    expect = dict(S2D_LAUNCHES, nms_select=0)
     x = seeded_images(91, 8)
     counters = zero_counters()
     with torch.inference_mode():
@@ -2670,8 +2706,8 @@ def prune_paths(final: str) -> tuple[dict, dict]:
     result["s2d_channels"] = {k: channels[k] for k in ("c5", "c8", "c13", "c21")}
     log(f"[deploy] a pruned Darknet-s2d (γ ~ U(0, 1.5), ratio {PRUNE_RATIO}; c5, c8, c13, c21 "
         f"at {result['s2d_channels']}) with pool reorg: launches {s2d_launches} as the routing "
-        f"gives (a pool takes the kernel where its channels are a multiple of 128); f32 raw "
-        f"head bit-identical to the forward without pool reorg")
+        f"gives (every conv → pool pair takes the kernel, at any width); f32 raw head "
+        f"bit-identical to the plain forward")
     return {k: launches[k] + s2d_launches[k] for k in KERNELS}, result
 
 
@@ -2712,7 +2748,7 @@ def tools_paths() -> dict:
         dots[name] = dot.count(" -> ")
     text, code, program = graph_dump(build(s2d_config())[2], SIZE, "cuda")
     calls = {k: text.count(f"yolojax_torch.{k}.default(") for k in ("maxpool2x2", "reorg_s2d")}
-    if calls != {"maxpool2x2": 3, "reorg_s2d": 1} or "def forward" not in code:
+    if calls != {"maxpool2x2": DARKNET_PAIRS, "reorg_s2d": 1} or "def forward" not in code:
         raise AssertionError(f"demo_graph: the Darknet-s2d dump calls {calls}")
     result["plan_edges"], result["graph_lines"] = dots, text.count("\n")
     log(f"[deploy] plan_to_dot edges {dots}; demo_graph's Darknet-s2d program: "
@@ -3188,6 +3224,7 @@ def gate_chain(card: str) -> tuple[dict, dict]:
     test_images = min(max(100, GATE_IMAGES // 6), GATE_IMAGES // 2)   # generate_voc's split
     batches = math.ceil(test_images / 20)
     want = per_batch(postprocess_fused=8 * batches, nms_select=batches,
+                     maxpool2x2=9 * batches * DARKNET_PAIRS,
                      bias_leaky_nhwc=9 * batches * DARKNET_EPILOGUES)
     maps = art["map"]
     if (rc not in (0, 1) or len(maps) != 8
@@ -3379,7 +3416,9 @@ def prune_phase(card: str) -> tuple[dict, dict]:
     want = scaled(DARKNET_LAUNCHES, len(PRUNE_EVALS) * batches)
     maps = {k: art[f"map_{k}_416"] for k in PRUNE_EVALS}
     if (rc not in (0, 1) or launches != want
-            or art["eval_launches"] != {k: {"postprocess_fused": batches} for k in PRUNE_EVALS}
+            or art["eval_launches"] != {k: {"postprocess_fused": batches,
+                                            "maxpool2x2": DARKNET_PAIRS * batches}
+                                        for k in PRUNE_EVALS}
             or not art["channels_kept"] < dense or art["source"]["step"] != PRUNE_STEPS
             or not all(np.isfinite(v) and 0 <= v <= 1 for v in maps.values())):
         raise AssertionError(f"prune gate: exit {rc}, launches {launches} (expected {want}), "
@@ -3409,11 +3448,10 @@ BENCH_ITERS = 5             # timed calls (steps, batches) a run; warm ones come
 BENCH_WARM_CALLS = 2        # detect calls before an infer or latency run's timed ones
 SUSTAINED_SECONDS = 10
 BENCH_DW = "nms,fusedpost,dwconv,dwsep"
-BENCH_POOL = "nms,fusedpost,pool"
 BENCH_FRESH_LATENCY = 3     # latency runs, each in a process of its own
-# the bench's Tiny and MobileNet without their forward kernels: every conv's
-# epilogue on bias_leaky_nhwc
-BENCH_TINY = per_batch(postprocess_fused=1, bias_leaky_nhwc=9)
+# the bench's MobileNet without its forward kernels: every conv's epilogue on
+# bias_leaky_nhwc (Tiny's and Darknet-19's conv → pool pairs take maxpool2x2 on
+# every route, so the ``pool`` token changes nothing on them)
 BENCH_MOBILENET = per_batch(postprocess_fused=1, bias_leaky_nhwc=32)
 # (label, environment, kernel launches per detect call): each run is
 # ``python -m yolojax_torch.tools.bench``'s ``main`` under that environment
@@ -3421,13 +3459,9 @@ BENCH_RUNS = [
     ("infer darknet 416", {}, DARKNET_LAUNCHES),
     ("infer darknet 320", {"BENCH_SIZE": "320"}, DARKNET_LAUNCHES),
     ("infer darknet 608", {"BENCH_SIZE": "608"}, DARKNET_LAUNCHES),
-    ("infer tiny 416", {"BENCH_MODEL": "tiny"}, BENCH_TINY),
+    ("infer tiny 416", {"BENCH_MODEL": "tiny"}, TINY_LAUNCHES),
     ("infer mobilenet 416", {"BENCH_MODEL": "mobilenet"}, BENCH_MOBILENET),
     ("infer darknet 416 nms", {"BENCH_PALLAS": "nms"}, DARKNET_NMS_LAUNCHES),
-    ("infer darknet 416 " + BENCH_POOL, {"BENCH_PALLAS": BENCH_POOL},
-     per_batch(postprocess_fused=1, maxpool2x2=3, bias_leaky_nhwc=DARKNET_EPILOGUES - 3)),
-    ("infer tiny 416 " + BENCH_POOL, {"BENCH_MODEL": "tiny", "BENCH_PALLAS": BENCH_POOL},
-     TINY_LAUNCHES),
     ("infer mobilenet 416 " + BENCH_DW, {"BENCH_MODEL": "mobilenet", "BENCH_PALLAS": BENCH_DW},
      MOBILENET_LAUNCHES),
     ("latency darknet 416", {"BENCH_MODE": "latency"}, DARKNET_LAUNCHES),
@@ -4010,7 +4044,9 @@ def c80_run(card: str) -> tuple[dict, dict]:
         for r in per_call}
     # forwards: a route's first, warm and timed calls and its post kernel's head, and
     # one a route on the dense head
-    want = per_batch(**calls, bias_leaky_nhwc=DARKNET_EPILOGUES * (2 * (3 + C80_ITERS) + 2))
+    forwards = 2 * (3 + C80_ITERS) + 2
+    want = per_batch(**calls, maxpool2x2=DARKNET_PAIRS * forwards,
+                     bias_leaky_nhwc=DARKNET_EPILOGUES * forwards)
     dense = row["same_boxes_init_objectness"]
     if (rc != 0 or line["device"] != card or launches != want
             or any(row[r]["launches_per_call"] != per_call[r] for r in per_call)
@@ -4158,7 +4194,7 @@ def bench_all_run(card: str) -> tuple[dict, dict]:
         if saved[2] is not None:
             os.environ["BENCH_ITERS"] = saved[2]
     want = {"LATENCY": scaled(DARKNET_LAUNCHES, BENCH_WARM_CALLS + max(BENCH_ALL_ITERS, 100)),
-            "TINY": scaled(BENCH_TINY, BENCH_WARM_CALLS + BENCH_ALL_ITERS)}
+            "TINY": scaled(TINY_LAUNCHES, BENCH_WARM_CALLS + BENCH_ALL_ITERS)}
     launches, numbers = dict.fromkeys(KERNELS, 0), {}
     for tag in BENCH_ALL_JOBS:
         path = out_dir / f"BENCH_{tag}_rsmoke.json"
@@ -4440,14 +4476,14 @@ def main() -> None:
     s2d_model, s2d_folded, s2d_run, s2d_launches = kernel_path(
         "darknet-s2d", s2d_config, S2D_LAUNCHES, {"pool", "reorg"}, exact=True)
     epilogue_err = max(epilogue_err, epilogue_vs_plain(s2d_model, s2d_folded, "darknet-s2d"))
-    fused_routing(s2d_model, s2d_folded, "darknet-s2d", {"pool", "reorg"}, 3, 1)
+    fused_routing(s2d_model, s2d_folded, "darknet-s2d", {"pool", "reorg"}, DARKNET_PAIRS, 1)
     nms_t = nms_times(s2d_model, s2d_folded, card)
     detect_times(s2d_model, s2d_folded, s2d_run, {"pool", "reorg"}, "Darknet-s2d", card)
     del s2d_model, s2d_folded, s2d_run
     tiny_model, tiny_folded, tiny_run, tiny_launches = kernel_path(
         "tiny", tiny_config, TINY_LAUNCHES, {"pool"}, exact=True)
     epilogue_err = max(epilogue_err, epilogue_vs_plain(tiny_model, tiny_folded, "tiny"))
-    fused_routing(tiny_model, tiny_folded, "tiny", {"pool"}, 2, 0)
+    fused_routing(tiny_model, tiny_folded, "tiny", {"pool"}, len(TINY_POOLS), 0)
     detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
     del tiny_model, tiny_folded, tiny_run
     layout_t = layout_times(card)

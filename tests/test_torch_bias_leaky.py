@@ -107,11 +107,13 @@ def _zeros_dwsep(x, wd, bd, wp, bp, stride=1, wp_t=None):
 
 
 # (model, pallas tokens, extra fields) -> epilogues on the wrapper per forward,
-# the bench's paths and the two fused-pool paths (PERF.md §4)
+# the bench's paths and the two fused-pool paths (PERF.md §4): every conv → 2×2/2
+# pair's epilogue runs in the pool kernel, whatever the tokens (Darknet's five,
+# Tiny's c1-c5), the s2d reorg takes c21's
 ROUTES = {
-    "darknet": (Darknet, {"nms", "fusedpost"}, {}, 23),
-    "darknet-s2d": (Darknet, {"nms", "pool", "reorg"}, {"reorg_order": "s2d"}, 19),
-    "tiny": (Tiny, {"nms", "fusedpost", "pool"}, {}, 7),
+    "darknet": (Darknet, {"nms", "fusedpost"}, {}, 18),
+    "darknet-s2d": (Darknet, {"nms", "pool", "reorg"}, {"reorg_order": "s2d"}, 17),
+    "tiny": (Tiny, {"nms", "fusedpost", "pool"}, {}, 4),
     "mobilenet": (MobileNet, {"nms", "fusedpost", "dwsep", "dwconv"}, {}, 14),
 }
 

@@ -134,11 +134,12 @@ def _model(cls, pallas, dtype=torch.bfloat16, **kw):
     return model, model.fold(params, state)
 
 
-PATHS = {"darknet": (Darknet, {"nms", "fusedpost"}, {}, {"bias_leaky_nhwc": 23}),
+PATHS = {"darknet": (Darknet, {"nms", "fusedpost"}, {},
+                     {"maxpool2x2": 5, "bias_leaky_nhwc": 18}),
          "tiny": (Tiny, {"nms", "fusedpost", "pool"}, {},
-                  {"maxpool2x2": 2, "bias_leaky_nhwc": 7}),
+                  {"maxpool2x2": 5, "bias_leaky_nhwc": 4}),
          "darknet-s2d": (Darknet, {"nms", "pool", "reorg"}, {"reorg_order": "s2d"},
-                         {"maxpool2x2": 3, "reorg_s2d": 1, "bias_leaky_nhwc": 19}),
+                         {"maxpool2x2": 5, "reorg_s2d": 1, "bias_leaky_nhwc": 17}),
          "mobilenet": (MobileNet, {"nms", "fusedpost", "dwsep", "dwconv"}, {},
                        {"dwconv3x3": 4, "dwsep": 7, "bias_leaky_nhwc": 14})}
 COUNTERS = {"dwconv3x3": dwconv.dwconv3x3, "dwsep": dwsep.dwsep,

@@ -24,14 +24,16 @@ import torch
 from yolojax_torch.kernels import nms as nk
 from yolojax_torch.kernels import pool as pk
 from yolojax_torch.kernels import reorg as rk
-from yolojax_torch.models.darknet import Darknet, Tiny
+from yolojax_torch.models.darknet import Darknet, Tiny, Yolo9000
 from yolojax_torch.ops import reorg as ops_reorg
 from yolojax_torch.ops.nms import nms_select as nms_plain
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# the routed pools' inputs at 416, batch 8: Darknet's pool3-pool5, Tiny's pool4-pool5
-ROUTED_POOLS = [(8, 104, 104, 128), (8, 52, 52, 256), (8, 26, 26, 512), (8, 52, 52, 128),
-                (8, 26, 26, 256)]
+# the routed pools' inputs at 416, batch 8: Darknet's pool1-pool5 (c1's and c2's
+# among them), Tiny's pool1-pool5
+ROUTED_POOLS = [(8, 416, 416, 32), (8, 208, 208, 64), (8, 104, 104, 128), (8, 52, 52, 256),
+                (8, 26, 26, 512), (8, 416, 416, 16), (8, 208, 208, 32), (8, 104, 104, 64),
+                (8, 52, 52, 128), (8, 26, 26, 256)]
 # chip_smoke.py's POOL_EXTRA, and C = 36 (not a whole bf16 unit of 8)
 POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3), (2, 6, 6, 36)]
 # (x, tail channels): c21's output and Darknet's top at 416, batch 8; chip_smoke.py's
@@ -187,20 +189,22 @@ def test_cuda_fused_reorg_concat_is_bit_identical_to_plain_version(rng, cuda_dev
 @pytest.mark.cuda
 @pytest.mark.parametrize("model_name", ["darknet-s2d", "tiny"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, model_name,
-                                                                  dtype):
+def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, monkeypatch,
+                                                                  model_name, dtype):
     """Full width at 128²: the fused pool and reorg kernels change no value,
-    so the raw head equals the forward without ``pool reorg`` bit for bit
-    where cuDNN picks the same algorithms for both (f32, TF32 off)."""
+    so the raw head equals the plain forward (without ``pool reorg``, and with
+    ``maxpool2x2_plain``, ``bias_leaky`` then ``F.max_pool2d``, in place of
+    the pool kernel on the conv → pool pairs) bit for bit where cuDNN picks
+    the same algorithms for both (f32, TF32 off)."""
     if model_name == "tiny":
         model = Tiny(anchors=np.ones((5, 2), np.float32), num_classes=20,
                      dtype=DTYPES[dtype], pallas=frozenset({"pool"}))
-        launches = {"maxpool2x2": 2, "reorg_s2d": 0}
+        launches = {"maxpool2x2": 5, "reorg_s2d": 0}
     else:
         model = Darknet(anchors=np.ones((5, 2), np.float32), num_classes=20,
                         dtype=DTYPES[dtype], pallas=frozenset({"pool", "reorg"}),
                         reorg_order="s2d")
-        launches = {"maxpool2x2": 3, "reorg_s2d": 1}
+        launches = {"maxpool2x2": 5, "reorg_s2d": 1}
     params, state = model.init(torch.Generator().manual_seed(0), device=cuda_device)
     folded = model.fold(params, state)
     x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (2, 128, 128, 3))
@@ -209,6 +213,7 @@ def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, m
     with torch.inference_mode():
         got = model.apply_folded(folded, x)
         counts = (pk.maxpool2x2.launches - before[0], rk.reorg_s2d.launches - before[1])
+        monkeypatch.setattr(pk, "maxpool2x2", pk.maxpool2x2_plain)
         want = dataclasses.replace(model, pallas=frozenset()).apply_folded(folded, x)
     torch.cuda.synchronize()
     assert counts == (launches["maxpool2x2"], launches["reorg_s2d"])
@@ -218,3 +223,41 @@ def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, m
     else:   # cuDNN may pick other bf16 algorithms for the two forwards
         diff = (got.float() - want.float()).abs().mean() / want.float().abs().mean()
         assert diff <= 0.01
+
+
+# (model, anchors, classes, its conv → 2×2/2 pairs): the bench's two
+# Darknet-trunk configurations (YOLO9000 with its 9 418-node synthetic tree),
+# and Tiny, whose sixth pool (stride 1) keeps max_pool
+POOLED_FORWARDS = {"darknet": (Darknet, 5, 20, 5), "yolo9000": (Yolo9000, 3, 9418, 5),
+                   "tiny": (Tiny, 5, 20, 5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", POOLED_FORWARDS)
+def test_cuda_pooled_forward_is_bit_identical_to_the_plain_pools(cuda_device, monkeypatch, name):
+    """Full width at 416, B=8, bf16, on config.ini's route (``nms
+    fusedpost``): every conv → 2×2/2 pair launches maxpool2x2 with its conv's
+    epilogue, and the forward equals the same forward with
+    ``maxpool2x2_plain`` (``bias_leaky`` then ``F.max_pool2d``) in its place,
+    bit for bit (the same cuDNN calls, deterministic algorithms)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cls, anchors, classes, pools = POOLED_FORWARDS[name]
+    model = cls(anchors=np.ones((anchors, 2), np.float32), num_classes=classes,
+                dtype=torch.bfloat16, pallas=frozenset({"nms", "fusedpost"}))
+    params, state = model.init(torch.Generator().manual_seed(0), device=cuda_device)
+    folded = model.fold(params, state)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for lp in folded.values():     # BN's fresh state folds to zero biases
+        lp["b"] = torch.randn(lp["b"].shape, generator=g, device="cuda") * 0.1
+    x = torch.rand(8, 416, 416, 3, generator=g, device="cuda")
+    before = pk.maxpool2x2.launches
+    with torch.inference_mode():
+        got = model.apply_folded(folded, x)
+        torch.cuda.synchronize()
+        assert pk.maxpool2x2.launches - before == pools
+        monkeypatch.setattr(pk, "maxpool2x2", pk.maxpool2x2_plain)
+        want = model.apply_folded(folded, x)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 13, 13, model.out_channels)
+    assert torch.isfinite(got).all()
+    _assert_bits(got, want)

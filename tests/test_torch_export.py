@@ -34,11 +34,12 @@ from yolojax_torch.ops.decode import decode_flat
 from yolojax_torch.tools import onnx_export
 
 # custom-op calls each path's export holds at 64² (every routed depthwise
-# layer of MobileNet takes dwsep at this size; with dwconv alone, dwconv;
+# layer of MobileNet takes dwsep at this size; with dwconv alone, dwconv; every
+# conv → 2×2/2 pair takes maxpool2x2 with the conv's epilogue, at any width;
 # every other conv hands its epilogue to bias_leaky_nhwc)
-OPS_AT_64 = {"darknet": {"bias_leaky_nhwc": 23},
-             "darknet-s2d": {"maxpool2x2": 3, "reorg_s2d": 1, "bias_leaky_nhwc": 19},
-             "tiny": {"maxpool2x2": 2, "bias_leaky_nhwc": 7},
+OPS_AT_64 = {"darknet": {"maxpool2x2": 5, "bias_leaky_nhwc": 18},
+             "darknet-s2d": {"maxpool2x2": 5, "reorg_s2d": 1, "bias_leaky_nhwc": 17},
+             "tiny": {"maxpool2x2": 5, "bias_leaky_nhwc": 4},
              "mobilenet": {"dwsep": 11, "bias_leaky_nhwc": 10}}
 
 
@@ -62,8 +63,9 @@ def _eager(model, folded, x):
                                          ("mobilenet", ("model/pallas=nms fusedpost dwconv",))],
                          ids=["darknet", "darknet-s2d", "tiny", "mobilenet", "mobilenet-dwconv"])
 def test_pt2_replay_matches_eager_and_jax(rng, tmp_path, family, mods):
-    # Darknet routes no forward kernel, so it runs at narrow widths; the
-    # others at full width, where their layers route as on the card
+    # Darknet's routes (its conv → pool pairs and epilogues) read no width, so
+    # it runs at narrow widths; the others at full width, where their layers
+    # route as on the card
     config = (narrow_config if family == "darknet" else family_config)(family, *mods)
     jmodel, (jp, js), model, (p, s) = both(config, rng)
     folded = model.fold(p, s)

@@ -37,6 +37,7 @@ from yolojax_torch.kernels import pool as pk
 from yolojax_torch.kernels import reorg as rk
 from yolojax_torch.models import LayerDef
 from yolojax_torch.models import engine
+from yolojax_torch.models.blocks import bias_leaky, conv, max_pool
 from yolojax_torch.models.darknet import Darknet, Tiny
 from yolojax_torch.utils.checkpoint import from_jax
 
@@ -158,7 +159,9 @@ PLANS = {
         lambda anchors, tokens: Darknet(anchors=anchors, num_classes=4, dtype=torch.float32,
                                         reorg_order="s2d", pallas=tokens),
         frozenset({"nms", "pool", "reorg"}),
-        [("maxpool2x2", (2, 16, 16, 128), ((128,), True, False)),       # c5, pool3
+        [("maxpool2x2", (2, 64, 64, 32), ((32,), True, False)),         # c1, pool1
+         ("maxpool2x2", (2, 32, 32, 64), ((64,), True, False)),         # c2, pool2
+         ("maxpool2x2", (2, 16, 16, 128), ((128,), True, False)),       # c5, pool3
          ("maxpool2x2", (2, 8, 8, 256), ((256,), True, False)),         # c8, pool4
          ("maxpool2x2", (2, 4, 4, 512), ((512,), True, True)),          # c13, s16, pool5
          ("reorg_s2d", (2, 4, 4, 64), (2, (2, 2, 2, 1024), (64,), True))]),  # c21, concat top
@@ -168,7 +171,10 @@ PLANS = {
         lambda anchors, tokens: Tiny(anchors=anchors, num_classes=4, dtype=torch.float32,
                                      pallas=tokens),
         frozenset({"nms", "fusedpost", "pool"}),
-        [("maxpool2x2", (2, 8, 8, 128), ((128,), True, False)),         # c4, pool4
+        [("maxpool2x2", (2, 64, 64, 16), ((16,), True, False)),         # c1, pool1
+         ("maxpool2x2", (2, 32, 32, 32), ((32,), True, False)),         # c2, pool2
+         ("maxpool2x2", (2, 16, 16, 64), ((64,), True, False)),         # c3, pool3
+         ("maxpool2x2", (2, 8, 8, 128), ((128,), True, False)),         # c4, pool4
          ("maxpool2x2", (2, 4, 4, 256), ((256,), True, False))]),       # c5, pool5
 }
 
@@ -193,28 +199,31 @@ def test_routed_plan_fuses_the_epilogues_and_matches_the_jax_engine(rng, monkeyp
     with torch.no_grad():
         got = model.apply_folded(folded, torch.from_numpy(x))
         assert log == calls
+        log.clear()
         unrouted = dataclasses.replace(model, pallas=frozenset()).apply_folded(
             folded, torch.from_numpy(x))
-    assert len(log) == len(calls)                 # the unrouted forward calls no kernel
+    # without tokens the conv → pool pairs still take the pool kernel, the reorg not
+    assert log == [c for c in calls if c[0] == "maxpool2x2"]
     assert torch.equal(got, unrouted)
     assert got.shape == want.shape == (2, 2, 2, 45)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-3)
 
 
 def test_a_marked_conv_before_a_routed_pool_fills_its_slot_with_the_epilogue(rng):
-    """conv, mark, pool, load: the slot holds the conv block's output."""
+    """conv, mark, pool, load: the slot holds the conv block's output, the
+    pool its 2×2 max, as the unfused ops compute them."""
     d = LayerDef("c", 128, 3)
     engine.resolve_in_channels([("conv", d)], 8)
     w = torch.from_numpy(rng.standard_normal((128, 8, 3, 3)).astype(np.float32) * 0.2)
     folded = {"c": {"w": w, "b": torch.from_numpy(rng.normal(0, 0.5, 128).astype(np.float32))}}
     x = torch.from_numpy(rng.standard_normal((2, 6, 6, 8)).astype(np.float32))
-    for tail, shape in ((["pool"], (2, 3, 3, 128)), (["pool", "load"], (2, 6, 6, 128))):
+    block = bias_leaky(conv(x.permute(0, 3, 1, 2), w), folded["c"]["b"])
+    for tail, want in ((["pool"], max_pool(block, 2, 2)), (["pool", "load"], block)):
         plan = [("conv", d), ("mark", "s"), ("pool", 2, 2)] + [("load", "s")] * (len(tail) - 1)
-        got = engine.run_plan(plan, folded, x, compute_dtype=torch.float32,
-                              pallas=frozenset({"pool"}))
-        want = engine.run_plan(plan, folded, x, compute_dtype=torch.float32)
-        assert got.shape == shape
-        assert torch.equal(got, want)
+        for pallas in (frozenset({"pool"}), frozenset()):
+            got = engine.run_plan(plan, folded, x, compute_dtype=torch.float32, pallas=pallas)
+            assert got.shape == want.permute(0, 2, 3, 1).shape
+            assert torch.equal(got, want.permute(0, 2, 3, 1))
 
 
 # -- the repaired caps --------------------------------------------------------

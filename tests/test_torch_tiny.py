@@ -2,8 +2,9 @@
 against yolojax's on the CPU, in f32, at full width (the pool gate reads the
 real channel counts), with weights carried over by ``checkpoint.from_jax``.
 
-Tiny runs the 2×2/2 pool kernel on pool4 and pool5 (``pallas = ... pool``),
-and its stride-1 tail pool is SAME: -inf padding on the bottom and right, so
+The JAX engine runs the 2×2/2 pool kernel on pool4 and pool5 (``pallas =
+... pool``), the port on pool1-pool5 with their convs' epilogues (its conv →
+pool route, whatever the tokens); the stride-1 tail pool is SAME: -inf padding on the bottom and right, so
 the 13×13 grid stays 13×13 at 416 (a VALID pool would give 12×12).
 Tolerances: pools exact; raw heads rtol/atol 1e-3 (test_torch_mobilenet.py's
 bound: 9 convolutions summed in other orders); the fused postprocess fed one
@@ -144,8 +145,10 @@ def test_routing_and_raw_head_at_64_match_the_jax_engine(rng, monkeypatch, jax_t
     model = _port(jmodel)
     with torch.no_grad():
         got = model.apply_folded(model.fold(*from_jax(params, state)), torch.from_numpy(x))
-    # pool4 and pool5 (C 128, 256); pool1-pool3 (C 16-64) and the stride-1 pool not
-    assert log == jlog == [(2, 8, 8, 128), (2, 4, 4, 256)]
+    # the JAX engine routes pool4 and pool5 (C 128, 256), not pool1-pool3 (C 16-64);
+    # the port's conv → 2×2/2 pairs all take the pool kernel; the stride-1 pool neither
+    assert jlog == [(2, 8, 8, 128), (2, 4, 4, 256)]
+    assert log == [(2, 64, 64, 16), (2, 32, 32, 32), (2, 16, 16, 64)] + jlog
     assert got.shape == want.shape == (2, 2, 2, 45)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-3)
 
@@ -159,7 +162,8 @@ def test_routing_and_grid_at_416(monkeypatch):
     with torch.no_grad():
         raw = model.apply_folded(folded, torch.rand(1, 416, 416, 3))
     assert raw.shape == (1, 13, 13, 125)
-    assert log == [(1, 52, 52, 128), (1, 26, 26, 256)]
+    assert log == [(1, 416, 416, 16), (1, 208, 208, 32), (1, 104, 104, 64), (1, 52, 52, 128),
+                   (1, 26, 26, 256)]
 
 
 def test_postprocess_of_one_raw_head_matches_jax(rng, jax_tiny):

@@ -107,9 +107,9 @@ def test_demo_graph_cli(workspace, tmp_path):
     _, _, jmodel = jcommon.build(load_config(cfg[1:]))
     assert (out / "plan.dot").read_text() == jdemo_graph.plan_to_dot(jmodel)
     text, code = (out / "model.graph.txt").read_text(), (out / "model.fx.py").read_text()
-    # Tiny's two routed pools are custom-op calls in the program
-    assert text.count("yolojax_torch.maxpool2x2.default(") == 2
-    assert "def forward" in code and code.count("yolojax_torch.maxpool2x2") == 2
+    # Tiny's five conv → 2×2/2 pools are custom-op calls in the program
+    assert text.count("yolojax_torch.maxpool2x2.default(") == 5
+    assert "def forward" in code and code.count("yolojax_torch.maxpool2x2") == 5
 
 
 def test_receptive_field_matches_jax(rng):

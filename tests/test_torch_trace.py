@@ -39,9 +39,9 @@ WEIGHTS = {"coord": 1.0, "object": 5.0, "noobject": 1.0, "cls": 1.0, "prior": 0.
 # whose layer the kernels of the route take whole (no conv and epilogue span)
 ROUTES = {
     "darknet": ("darknet", (), "darknet",
-                {"layout": 2, "conv": 23, "epilogue": 23, "pool": 5, "reorg": 1, "concat": 1}),
+                {"layout": 2, "conv": 23, "epilogue": 18, "pool": 5, "reorg": 1, "concat": 1}),
     "darknet-s2d": ("darknet", ("pool", "reorg"), "s2d",
-                    {"layout": 2, "conv": 23, "epilogue": 19, "pool": 5, "reorg": 1}),
+                    {"layout": 2, "conv": 23, "epilogue": 17, "pool": 5, "reorg": 1}),
     "mobilenet": ("mobilenet", ("dwconv", "dwsep"), "darknet",
                   {"layout": 2, "dwsep": 11, "conv": 10, "epilogue": 10, "reorg": 1,
                    "concat": 1}),
@@ -265,8 +265,8 @@ def test_the_cap_counts_dropped_spans(monkeypatch):
     monkeypatch.setattr(trace, "MAX_SPANS", 5)
     _profiled(detect, folded, images)
     snap = trace.snapshot()
-    # 55 leaves, forward, post and the root: the first five to end are kept
-    assert len(snap["spans"]) == 5 and snap["dropped"] == 58 - 5
+    # 50 leaves, forward, post and the root: the first five to end are kept
+    assert len(snap["spans"]) == 5 and snap["dropped"] == 53 - 5
     assert all(s["name"].startswith("yolojax_torch.plan.") for s in snap["spans"])
     trace.reset()
     assert trace.snapshot()["dropped"] == 0

@@ -34,12 +34,21 @@ views.
 
 Where routing goes further than the JAX engine's:
 
-* a conv on cuDNN followed by a routed pool, directly or with one ``mark``
-  between, hands its raw output and bias to the pool kernel, which runs the
-  conv's bias + leaky epilogue (and, for the mark, writes its full-resolution
-  output into the slot); a conv followed by a routed reorg does the same with
-  the reorg kernel, which also writes the ``concat`` right after it.  Both
-  compute what the unfused ops compute, bit for bit;
+* a conv on cuDNN followed by a 2×2/2 pool of even H and W, directly or
+  with one ``mark`` between, hands its raw output and bias to the pool
+  kernel, which runs the conv's bias + leaky epilogue (and, for the mark,
+  writes its full-resolution output into the slot), under any ``[model]
+  pallas`` tokens and at any channel count.  The JAX engine routes such a
+  pool only under ``pool`` and at lane-aligned channels
+  (``yolojax/models/engine.py:146-148``) and leaves the rest to XLA, which
+  fuses the epilogue into ``reduce_window``; the routing differs, the
+  function is the same.  A stride-1 pool or an odd H or W keeps the
+  epilogue kernel and ``max_pool``, and a pool that follows no conv keeps
+  the ``pool`` token and the lane gate;
+* a conv followed by a routed reorg hands its raw output and bias to the
+  reorg kernel, which runs the epilogue and also writes the ``concat`` right
+  after it.  Both fused kernels compute what the unfused ops compute, bit
+  for bit;
 * a conv whose epilogue no kernel takes runs it in the one-pass epilogue
   kernel (``kernels/epilogue.py``), bit for bit ``blocks.bias_leaky``'s
   result, under no ``[model] pallas`` token: the counterpart of the epilogue
@@ -137,13 +146,19 @@ def _dwsep_pair(plan, i, height: int, dtype) -> LayerDef | None:
     return _pointwise_after(plan, i)
 
 
+def _pool_fusable(y, size: int, stride: int) -> bool:
+    """A pool that takes the raw output ``y`` of the conv before it, with its
+    epilogue, at any channel count: 2×2/2, H and W even.  ``y`` is
+    NCHW-shaped, so H is ``y.shape[2]`` and W ``y.shape[3]``."""
+    return size == 2 and stride == 2 and y.shape[2] % 2 == 0 and y.shape[3] % 2 == 0
+
+
 def _pool_routable(x, size: int, stride: int) -> bool:
-    """A pool the pool kernel takes (``engine.py:146-148``): 2×2/2, channels
-    a multiple of 128, H and W even.  ``x`` is NCHW-shaped, so C is
-    ``x.shape[1]``, H ``x.shape[2]`` and W ``x.shape[3]`` (the JAX engine
-    reads ``x.shape[-1]``, ``x.shape[1]`` and ``x.shape[2]`` of an NHWC array)."""
-    return (size == 2 and stride == 2 and x.shape[1] % 128 == 0
-            and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+    """A pool after no conv that the pool kernel takes (``engine.py:146-148``):
+    a fusable one whose channels are a multiple of 128, C being ``x.shape[1]``
+    (the JAX engine reads ``x.shape[-1]``, ``x.shape[1]`` and ``x.shape[2]``
+    of an NHWC array)."""
+    return _pool_fusable(x, size, stride) and x.shape[1] % 128 == 0
 
 
 def _after_conv(plan, i):
@@ -223,8 +238,7 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             with span("yolojax_torch.plan.conv", layer=d.name):
                 y = conv(x, p["w"], stride=d.stride, groups=d.groups)
             key, j, nxt = _after_conv(plan, i)
-            if (use_pool_k and nxt is not None and nxt[0] == "pool"
-                    and _pool_routable(y, nxt[1], nxt[2])):
+            if nxt is not None and nxt[0] == "pool" and _pool_fusable(y, nxt[1], nxt[2]):
                 with span("yolojax_torch.plan.pool", layer=d.name):
                     out = maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
                 if key is not None:

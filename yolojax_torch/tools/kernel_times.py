@@ -8,12 +8,11 @@ there and times them on the same seeded inputs, at batch 8 and 128, bf16:
 the fused decode+NMS kernel and nms_select on VOC-416 heads (B, 13, 13, 125)
 at the bench density (objectness near −6) and saturated (objectness logits
 N(0, 4)) (nms_select on the f32 decode); dwconv3x3 summed over
-MobileNet-416's four routed layers; the routed pools' work summed over
-Darknet's three (c5, c8, c13 before pool3-pool5) and Tiny's two (c4, c5
-before pool4-pool5) and the passthrough's reorg at c21, each as the
-checkout's engine runs it on the conv's raw output (a checkout whose
-kernels take no bias: ``bias_leaky``, then the kernel, then ``torch.cat``
-for the reorg); and Darknet-s2d and Tiny detect per call (full width, 416,
+MobileNet-416's four routed layers; the pools' work summed over Darknet's
+five conv → 2×2/2 pairs (c1, c2, c5, c8, c13 before pool1-pool5) and Tiny's
+five (c1-c5), and the passthrough's reorg at c21, each on the checkout's
+kernel from the conv's raw output (a checkout whose kernels take no bias:
+``bias_leaky``, then the kernel, then ``torch.cat`` for the reorg); and Darknet-s2d and Tiny detect per call (full width, 416,
 seeded random weights), with the device kernels of one forward.  Two
 numbers per case: the time of one call between CUDA events (3 warm-up
 calls, median of 7), which holds the wrapper's host time where the card
@@ -39,9 +38,13 @@ THRESHOLD, OVERLAP, TOPK = 0.005, 0.45, 100
 BATCHES = (8, 128)
 # MobileNet-416's routed depthwise layers: (H, C, stride)
 DWCONV_LAYERS = [(104, 128, 1), (104, 128, 2), (52, 256, 1), (52, 256, 2)]
-# the routed pools' raw conv outputs (H, C) and whether the full output is kept
-POOLS = {"Darknet": [(104, 128, False), (52, 256, False), (26, 512, True)],
-         "Tiny": [(52, 128, False), (26, 256, False)]}
+# the conv → 2×2/2 pairs of a forward at 416, each on maxpool2x2 with its conv's
+# epilogue: (H, C) of the raw conv output and whether the full output is kept
+# (c13's, for the passthrough)
+POOLS = {"Darknet": [(416, 32, False), (208, 64, False), (104, 128, False), (52, 256, False),
+                     (26, 512, True)],
+         "Tiny": [(416, 16, False), (208, 32, False), (104, 64, False), (52, 128, False),
+                  (26, 256, False)]}
 HERE = Path(__file__).resolve()
 
 
