@@ -46,8 +46,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
      densities, boxes broadcast over the classes and one box row per class,
      max_out 100 (and 300 at 19×19): idx, conf and valid identical; then the
      postprocess with its gather against the plain one;
-   * maxpool2x2 and reorg_s2d — the ten routed pool shapes at batch 8
-     (Darknet-19's and Tiny's five conv → pool pairs each at 416), c21's
+   * maxpool2x2 and reorg_s2d — the routed pool shapes at batch 8
+     (Darknet-19's and Tiny's conv → pool pairs at 416, from the route), c21's
      (8,26,26,64) with the (8,13,13,1024) top, C = 3, 36 and 72, tails of 5
      to 16 channels and 2×2 inputs, f32 and bf16, inputs with NaN, ±inf and
      signed zeros: the bare kernels and their fused modes (the conv's bias +
@@ -60,10 +60,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
    bf16, built from ``config.ini`` with a seeded fresh init (objectness bias
    −6, the bench density), through ``Inference.detect_fn(0.005, 0.45, 100)``
    on batches of 8; every launch counter is set to 0 just before and read
-   just after, and must show one fused launch, 5 ``maxpool2x2`` (c1, c2,
-   c5, c8 and c13 with their pools, each with its conv's epilogue) and 18 of
-   the one-pass epilogue (``bias_leaky_nhwc``, every other conv's) per batch
-   and nothing else;
+   just after, and must show per batch the launches the engine's route and
+   the post step give (``Inference.launches``: one fused launch, a
+   ``maxpool2x2`` for each conv → pool pair with its conv's epilogue, the
+   one-pass epilogue ``bias_leaky_nhwc`` for every other conv) and nothing
+   else;
    the outputs must be finite and ``keep`` must match the plain postprocess
    of the same raw head; every epilogue call of one forward, on the conv
    output it is handed, bit-identical to ``bias_leaky`` (six torch ops) on
@@ -74,8 +75,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    ``cli.detect.detect_image`` on one seeded 480×640 image;
 6. MobileNet main path — full-width MobileNet-YOLOv2 at 416 from
    ``config.ini`` + ``config/mobilenet.ini`` with ``pallas = nms fusedpost
-   dwsep dwconv``, the same seeded init, density and checks: dwconv 4,
-   dwsep 7, bias_leaky_nhwc 14 and fused 1 launch per batch; one more batch
+   dwsep dwconv``, the same seeded init, density and checks (its route's
+   launches: dwconv3x3 and dwsep on the routed depthwise layers); one more batch
    with the objectness bias at 0, where the random head has picks, against
    the plain postprocess; the raw head against the plain path, the same
    forward without ``dwsep dwconv`` (cuDNN) and with ``bias_leaky`` in place
@@ -83,19 +84,18 @@ Phases, each of which passes or raises (any failure exits non-zero):
    diff ≤ 1 % of mean |raw|; then ``detect_image``;
 7. Darknet-s2d main path — Darknet-19 from ``config.ini`` with ``reorg =
    s2d`` and ``pallas = nms pool reorg``, the same init, density and
-   checks: nms_select 1, maxpool2x2 5, reorg_s2d 1 and bias_leaky_nhwc 17
-   launches per batch; the dense batch; the raw head bit-identical to the
+   checks (its route's launches: nms_select and the s2d reorg kernel with
+   c21's epilogue and the concat); the dense batch; the raw head bit-identical to the
    plain path (without ``pool reorg``, ``bias_leaky`` for the epilogues,
    ``maxpool2x2_plain`` for the conv → pool pairs) in
    f32 (TF32 off) and, where cuDNN allows, in bf16 (else within MobileNet's
-   1 % bound, said so); a CUDA graph capture of one forward: the five
-   pools and the reorg run their fused (bias) instantiations, and the
+   1 % bound, said so); a CUDA graph capture of one forward: the route's
+   pools and reorg run their fused (bias) instantiations, and the
    device kernels per forward with the path's kernels and on the plain
    path; ``torch.profiler``'s host ops: no ``aten::cat``; then
    ``detect_image``;
 8. Tiny main path — Tiny-YOLO-VOC from ``config.ini`` + ``config/tiny.ini``
-   with ``pallas = nms fusedpost pool``: maxpool2x2 5 (fused),
-   bias_leaky_nhwc 4 and fused decode+NMS 1 launch per batch, a
+   with ``pallas = nms fusedpost pool``: its route's launches, a
    (B,13,13,125) raw head, the dense batch, the raw head against the plain
    path (without ``pool``) as for Darknet-s2d, ``detect_image``;
 9. times (each model's right after its path) — CUDA events, warm-up, median
@@ -234,11 +234,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    refuse naming cv2, and the phase says they did not run).  Each prints
    one JSON line with ``bench.py``'s metric name, a finite positive value, its unit,
    ``vs_baseline`` and the card's name and power limit, and with every
-   launch counter set to 0 just before and read just after launches its
-   path's kernels once per detect call: the fused decode+NMS on the default
-   routes, nms_select under ``nms``, MobileNet's 4 dwconv3x3 and 7 dwsep
-   besides, Darknet-19's and Tiny's 5 maxpool2x2 on every route; train,
-   e2e and pipeline none.  The latency run again in 3 processes of its own
+   launch counter set to 0 just before and read just after launches what
+   its model's route and post step give (``Inference.launches``) once per
+   detect call; train, e2e and pipeline none.  The latency run again in 3 processes of its own
    (B=1 is host-bound and reads the host's state).  Then ``python -m
    yolojax_torch.tools.sustained_bench`` for 10 s: one fused launch per
    call, p5 ≤ p50 ≤ p95.  Prints ``{"bench": {...}}`` and the phase's wall
@@ -280,10 +278,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    and the 28 269-wide linear head, 544, bf16, random weights with the
    head's class rows ×8 so walks go a few groups deep and objectness bias
    -2.5) through ``Inference.detect_fn`` at B=8, 8 and 128, every launch
-   counter set to 0 just before: per call 5 ``maxpool2x2`` (c1, c2, c5, c8
-   and c13 with their pools), 14 ``bias_leaky_nhwc`` (the other convs and
-   the head) and 2 ``tree_decode``
-   (the walk, the NMS); each call's picks held to
+   counter set to 0 just before: per call its route's ``maxpool2x2`` and
+   ``bias_leaky_nhwc`` and 2 ``tree_decode`` (the walk, the NMS); each
+   call's picks held to
    ``ops/tree.py::tree_postprocess`` on the raw head it decoded, its raw
    head to the plain path's (``raw_vs_without``), then ``detect_image``;
    (b) the kernels alone on seeded heads (17×17×3 boxes of 5 + 9 418
@@ -302,11 +299,11 @@ the two gates' evals, the bench's runs and phase 17's (both nodes' eval,
 the COCO-80 tool, the runner's two jobs) included, max abs err, ms, plain_ms,
 bound_ms, bound_by and library_ms at batch 8, null where no PyTorch call
 computes the function), then, last, ``{"ok": true, "device": {...}}``.
-Wherever a phase counts launches it counts the one-pass epilogue's
-(``bias_leaky_nhwc``) too: one for each conv of a folded forward whose
-epilogue no pool, reorg or depthwise kernel takes (18 a Darknet-19 forward,
-whose five conv → pool pairs launch ``maxpool2x2`` on every route), none in
-a train step.
+Wherever a phase counts launches it holds them to what the engine's route
+and the post step give for the calls it makes (``Inference.launches``):
+the one-pass epilogue (``bias_leaky_nhwc``) for each conv of a folded
+forward whose epilogue no pool, reorg or depthwise kernel takes, none in a
+train step.
 Times are information, not a benchmark.  The train step runs no
 hand-written kernel (the JAX package trains with every Pallas kernel off);
 the detect on its checkpoint runs the fused decode+NMS and the one-pass
@@ -323,12 +320,13 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from yolojax_torch.tools.kernel_times import POOLS as KERNEL_TIMES_POOLS
+from yolojax_torch.tools.kernel_timing import PEAK_BF16, PEAK_BYTES, PEAK_F32
 
 ROOT = Path(__file__).resolve().parent
 THRESHOLD, OVERLAP, TOPK = 0.005, 0.45, 100
@@ -346,14 +344,6 @@ TIME_BATCHES = (8, 128)
 MOBILENET_TOKENS = "nms fusedpost dwsep dwconv"
 S2D_TOKENS = "nms pool reorg"
 TINY_TOKENS = "nms fusedpost pool"
-# MobileNet-416's routed layers, per forward: (count, H, C, Cout, stride)
-DWCONV_LAYERS = [(1, 104, 128, 128, 1), (1, 104, 128, 128, 2), (1, 52, 256, 256, 1),
-                 (1, 52, 256, 256, 2)]
-DWSEP_LAYERS = [(5, 26, 512, 512, 1), (1, 26, 512, 1024, 2), (1, 13, 1024, 1024, 1)]
-# routed pools per forward, (H, C) of the raw conv output before each and whether its
-# full epilogue output is kept (c13's, for the passthrough): every conv → 2×2/2 pair,
-# Darknet's c1, c2, c5, c8 and c13 before pool1-pool5, Tiny's c1-c5
-DARKNET_POOLS, TINY_POOLS = KERNEL_TIMES_POOLS["Darknet"], KERNEL_TIMES_POOLS["Tiny"]
 REORG_SHAPE = (26, 64)      # c21's output at 416: (B, 26, 26, 64) -> (B, 13, 13, 256)
 REORG_TAIL = 1024           # the passthrough's top, (B, 13, 13, 1024), concatenated after it
 # the one-pass epilogue's timed conv outputs at 416, (H, C), and the share of the
@@ -375,26 +365,53 @@ def scaled(per_call: dict, n: int) -> dict:
     return {name: count * n for name, count in per_call.items()}
 
 
-# the conv → 2×2/2 pairs of a Darknet-19 forward (c1, c2, c5, c8, c13), each on
-# maxpool2x2 with its conv's epilogue on every route, and the 18 other convs, each
-# one's epilogue on bias_leaky_nhwc where no reorg kernel takes it
-DARKNET_PAIRS = len(DARKNET_POOLS)
-DARKNET_EPILOGUES = 23 - DARKNET_PAIRS
-# kernel launches per detect_fn batch on each main path; bias_leaky_nhwc: each conv
-# whose epilogue no pool, reorg or depthwise kernel takes (MobileNet: 32 convs, 18
-# of them on dwconv3x3 or dwsep; Tiny: 9, 5 on maxpool2x2)
-DARKNET_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=DARKNET_PAIRS,
-                             bias_leaky_nhwc=DARKNET_EPILOGUES)
-MOBILENET_LAUNCHES = per_batch(postprocess_fused=1, dwconv3x3=4, dwsep=7, bias_leaky_nhwc=14)
-S2D_LAUNCHES = per_batch(nms_select=1, maxpool2x2=DARKNET_PAIRS, reorg_s2d=1,
-                         bias_leaky_nhwc=DARKNET_EPILOGUES - 1)
-TINY_LAUNCHES = per_batch(postprocess_fused=1, maxpool2x2=len(TINY_POOLS), bias_leaky_nhwc=4)
-# Darknet-19 with pallas = nms: nms_select in place of the fused kernel
-DARKNET_NMS_LAUNCHES = per_batch(nms_select=1, maxpool2x2=DARKNET_PAIRS,
-                                 bias_leaky_nhwc=DARKNET_EPILOGUES)
-# YOLO9000 on config.ini's route: Darknet-19's five pairs on maxpool2x2, its other 13
-# convs and the head on bias_leaky_nhwc, then the tree walk and the per-node NMS
-YOLO9000_LAUNCHES = per_batch(maxpool2x2=DARKNET_PAIRS, bias_leaky_nhwc=14, tree_decode=2)
+def summed(*counts: dict) -> dict:
+    """The launches of several runs together."""
+    return {name: sum(c[name] for c in counts) for name in KERNELS}
+
+
+def model_of(config):
+    """The model ``config`` builds, without weights."""
+    from yolojax_torch.cli.common import build
+
+    return build(config)[2]
+
+
+def launches_of(model, calls: int = 1, size: int = SIZE, post: bool = True) -> dict:
+    """The launches of ``calls`` detect calls of ``model`` on ``size``² images
+    (of its forwards alone without ``post``), every kernel of KERNELS named:
+    what the engine's route and the post step launch
+    (``Inference.launches``)."""
+    from yolojax_torch.models.inference import Inference
+
+    return scaled(per_batch(**Inference(model).launches(size, post=post)), calls)
+
+
+def routed(model, kernel: str) -> list:
+    """The steps of ``model``'s route at SIZE that launch ``kernel``."""
+    from yolojax_torch.models.engine import route
+
+    return [s for s in route(model.plan, pallas=model.pallas, reorg_order=model.reorg_order,
+                             dtype=model.dtype, channels=3, height=SIZE, width=SIZE)
+            if s.kernel == kernel]
+
+
+def pooled(model) -> list:
+    """The fused pools of a forward: (H, C) of the raw conv output each takes
+    and whether its full epilogue output is kept (Darknet's c13, for the
+    passthrough)."""
+    return [(s.shape[1], s.shape[0], s.key is not None) for s in routed(model, "maxpool2x2")
+            if s.layer is not None]
+
+
+def depthwise(model, kernel: str) -> list:
+    """The layers of a forward on ``kernel`` (dwconv3x3 or dwsep), per shape
+    in route order: (count, H, C, Cout, stride)."""
+    shapes = Counter((s.shape[1], s.shape[0], (s.arg or s.layer).out_ch, s.layer.stride)
+                     for s in routed(model, kernel))
+    return [(count, *shape) for shape, count in shapes.items()]
+
+
 # kernel-vs-plain cases beyond the routed shapes: odd spatial sizes, C % 128 != 0
 # (2, 37, ...): the last 16-row tile of the 37 output rows holds 5; (1, 400, ...) and
 # (1, 600, ...) walk each row in two column tiles
@@ -407,11 +424,9 @@ DWSEP_EXTRA = [(8, 27, 64, 96, 2), (8, 13, 512, 1024, 2), (2, 13, 72, 40, 1), (2
 POOL_EXTRA = [(8, 26, 26, 72), (2, 2, 2, 128), (2, 2, 2, 72), (3, 6, 4, 3), (2, 6, 6, 36)]
 REORG_EXTRA = [((2, 26, 26, 3), 5), ((2, 26, 26, 72), 16), ((2, 2, 2, 64), 8), ((2, 2, 2, 3), 6)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# an H100 SXM's published peaks: device memory
-# bytes/s, and flop/s by operand type (bf16 on the tensor cores, f32 on the
-# CUDA cores)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16 tensor": 989e12, "f32": 67e12}
+# flop/s by operand type (bf16 on the tensor cores, f32 on the CUDA cores):
+# tools/kernel_timing.py's H100 SXM peaks
+PEAK_FLOPS = {"bf16 tensor": PEAK_BF16, "f32": PEAK_F32}
 HOST_ROUNDS, HOST_CALLS = 7, 300   # host-time measurement: median of rounds of calls
 
 
@@ -674,9 +689,10 @@ def dw_vs_plain() -> dict:
 
     rng = np.random.default_rng(4)
     worst = {"dwconv3x3": 0.0, "dwsep": 0.0}
-    cases = [("dwconv3x3", 8, *layer[1:]) for layer in DWCONV_LAYERS]
+    mobilenet = model_of(mobilenet_config())
+    cases = [("dwconv3x3", 8, *layer[1:]) for layer in depthwise(mobilenet, "dwconv3x3")]
     cases += [("dwconv3x3", *case) for case in DWCONV_EXTRA]
-    cases += [("dwsep", 8, *layer[1:]) for layer in DWSEP_LAYERS]
+    cases += [("dwsep", 8, *layer[1:]) for layer in depthwise(mobilenet, "dwsep")]
     cases += [("dwsep", *case) for case in DWSEP_EXTRA]
     for name, b, h, c, cout, stride in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -780,7 +796,8 @@ def layout_vs_plain() -> dict:
 
     rng = np.random.default_rng(9)
     worst = {"maxpool2x2": 0.0, "reorg_s2d": 0.0}
-    pools = [(8, h, h, c) for h, c, _ in DARKNET_POOLS + TINY_POOLS] + POOL_EXTRA
+    pools = [(8, h, h, c) for config in (darknet_config(), tiny_config())
+             for h, c, _ in pooled(model_of(config))] + POOL_EXTRA
     reorgs = [((8, REORG_SHAPE[0], REORG_SHAPE[0], REORG_SHAPE[1]), REORG_TAIL)] + REORG_EXTRA
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -875,11 +892,12 @@ def seeded_images(seed: int, b: int, size: int = SIZE) -> torch.Tensor:
                             .astype(np.float32)).cuda()
 
 
-def drive(config, what: str, expect: dict):
+def drive(config, what: str):
     """Drive ``detect_fn`` on seeded batches of 8 at the configured size, with
     every launch counter set to 0 just before and read just after; check the
-    counts, the outputs and the plain postprocess of the same raw heads, then
-    ``detect_image``.  Returns (model, params, state, folded, run, launches)."""
+    counts against the route's, the outputs and the plain postprocess of the
+    same raw heads, then ``detect_image``.  Returns (model, params, state,
+    folded, run, launches)."""
     from yolojax_torch.cli.common import build, load_weights_auto
     from yolojax_torch.cli.detect import detect_image
     from yolojax_torch.models.inference import Inference
@@ -907,7 +925,7 @@ def drive(config, what: str, expect: dict):
     outs = [run(folded, x) for x in batches]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = scaled(expect, len(batches))
+    want = launches_of(model, len(batches), size)
     if launches != want:
         raise AssertionError(f"{what}: {len(batches)} batches launched {launches}, "
                              f"expected {want}")
@@ -1107,7 +1125,7 @@ def darknet_config(dtype: str = "bfloat16"):
 def darknet_path():
     """The Darknet main path: drive it, then hold its raw head to the plain
     path's (``bias_leaky`` in place of the one-pass epilogue)."""
-    model, _, _, folded, run, launches = drive(darknet_config(), "darknet", DARKNET_LAUNCHES)
+    model, _, _, folded, run, launches = drive(darknet_config(), "darknet")
     raw_vs_without(model, folded, darknet_config, set(), "darknet", exact=True)
     return model, folded, run, launches
 
@@ -1136,10 +1154,10 @@ def tiny_config(tokens: str = TINY_TOKENS, dtype: str = "bfloat16"):
 DW_TOKENS = {"dwsep", "dwconv"}
 
 
-def kernel_path(what: str, config_fn, expect: dict, drop: set, exact: bool):
+def kernel_path(what: str, config_fn, drop: set, exact: bool):
     """A main path through kernels of the forward: drive it, check a dense
     batch, and hold its raw head to the plain path's."""
-    model, _, _, folded, run, launches = drive(config_fn(), what, expect)
+    model, _, _, folded, run, launches = drive(config_fn(), what)
     dense_batch(model, folded, run, what)
     raw_vs_without(model, folded, config_fn, drop, what, exact)
     return model, folded, run, launches
@@ -1192,9 +1210,11 @@ def dw_times(card: str) -> dict:
     from yolojax_torch.kernels.dwsep import dwsep, dwsep_plain
 
     rng = np.random.default_rng(6)
+    mobilenet = model_of(mobilenet_config())
     sums = {}
     for b in TIME_BATCHES:
-        for name, layers in (("dwconv3x3", DWCONV_LAYERS), ("dwsep", DWSEP_LAYERS)):
+        for name in ("dwconv3x3", "dwsep"):
+            layers = depthwise(mobilenet, name)
             total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
             bound = Bound()
             for count, h, c, cout, stride in layers:
@@ -1313,8 +1333,9 @@ def layout_times(card: str) -> dict:
         "cuda", torch.bfloat16)
     b_of = lambda c: torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32)).cuda()
     result = {}
+    models = {"Darknet": pooled(model_of(darknet_config())), "Tiny": pooled(model_of(tiny_config()))}
     for b in TIME_BATCHES:
-        for model_name, pools in (("Darknet", DARKNET_POOLS), ("Tiny", TINY_POOLS)):
+        for model_name, pools in models.items():
             total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
             bound = Bound()
             for h, c, full in pools:
@@ -1570,15 +1591,17 @@ def profile(card: str, path: str) -> None:
                 f"x{e.count / 5:<5.0f} {e.key[:100]}")
 
 
-def fused_routing(model, folded, what: str, drop: set, pools: int, reorgs: int) -> None:
-    """One batch-8 forward: every pool and reorg kernel the path launches
-    must be its fused (bias) instantiation (a CUDA graph capture of the
-    forward, ``captured_work``), and the forward must call no ``aten::cat``
-    (``torch.profiler``'s host-side ops); prints the device kernels per
-    forward with the path's kernels and on the plain path (without ``drop``,
-    ``bias_leaky`` for the one-pass epilogue)."""
+def fused_routing(model, folded, what: str, drop: set) -> None:
+    """One batch-8 forward: the path launches the pool and reorg kernels its
+    route gives, each in its fused (bias) instantiation (a CUDA graph capture
+    of the forward, ``captured_work``), and the forward must call no
+    ``aten::cat`` (``torch.profiler``'s host-side ops); prints the device
+    kernels per forward with the path's kernels and on the plain path
+    (without ``drop``, ``bias_leaky`` for the one-pass epilogue)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    forward = launches_of(model, post=False)
+    pools, reorgs = forward["maxpool2x2"], forward["reorg_s2d"]
     x = seeded_images(4, 8)
     counts = {}
     for label, m, epilogue in (("with", model, contextlib.nullcontext()),
@@ -1781,7 +1804,7 @@ def trained_detect(run: dict) -> dict:
     outs = [detect(folded, x) for x in batches]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = scaled(DARKNET_LAUNCHES, len(batches))
+    want = launches_of(model, len(batches))
     if launches != want:
         raise AssertionError(f"detect on the trained checkpoint launched {launches}, "
                              f"expected {want}")
@@ -2327,7 +2350,7 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
     main, launches, seconds = eval_once(config, params, state, records, imread,
                                         "bf16 on the card (fused decode+NMS)",
-                                        scaled(DARKNET_LAUNCHES, batches))
+                                        launches_of(model, batches))
     log("[eval] AP per class: " + ", ".join(f"{names[c]} {ap:.4f}"
                                             for c, ap in sorted(main["ap"].items())))
 
@@ -2341,7 +2364,7 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
     nms_cfg = eval_config("model/pallas=nms")
     nms, nms_launches, _ = eval_once(nms_cfg, params, state, records, imread,
                                      "bf16 on the card with pallas = nms (nms_select)",
-                                     scaled(DARKNET_NMS_LAUNCHES, batches))
+                                     launches_of(model_of(nms_cfg), batches))
     picks = same_picks(nms["recorder"], main["recorder"], "pallas = nms against fusedpost")
     if nms["map"] != main["map"]:
         raise AssertionError(f"eval: pallas = nms gives mAP {nms['map']}, fusedpost "
@@ -2355,8 +2378,8 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
         p, s, _ = load_weights_auto(cfg, build(cfg)[2], final, device=device)
         where = "card" if device == "cuda" else "CPU"
         f32[device], _, _ = eval_once(cfg, p, s, records, imread, f"f32 on the {where}",
-                                      scaled(DARKNET_LAUNCHES, batches)
-                                      if device == "cuda" else None)
+                                      launches_of(model, batches) if device == "cuda"
+                                      else None)
     gap = {"map": abs(f32["cuda"]["map"] - f32["cpu"]["map"]),
            "ap": max(abs(f32["cuda"]["ap"][k] - v) for k, v in f32["cpu"]["ap"].items())}
     log(f"[eval] f32 card against CPU (TF32 off): mAP {f32['cuda']['map']:.6f} vs "
@@ -2381,21 +2404,17 @@ def eval_phase(card: str, final: str) -> tuple[dict, dict]:
     log(f"[eval] {card} | eval at {SIZE}, bf16, batch {EVAL_BATCH}: {EVAL_IMAGES} images in "
         f"{seconds:.2f} s = {result['img_per_s']:.1f} img/s (host AP included); the eval "
         f"phase took {result['phase_seconds']:.1f} s")
-    return {k: launches[k] + nms_launches[k] for k in launches}, result
+    return summed(launches, nms_launches), result
 
 
 # -- the deploy and tools phase ---------------------------------------------------
 
 DEPLOY_DIR = ROOT / "build" / "chip_smoke_deploy"   # git-ignored: programs, pruned checkpoints
 DEPLOY_BATCHES = 3
-# the four paths the export takes, with the custom-op calls each program holds at 416
-# (every conv epilogue that no other kernel takes is one bias_leaky_nhwc call)
-EXPORT_PATHS = {"darknet": (darknet_config, {"maxpool2x2": 5, "bias_leaky_nhwc": 18}),
-                "mobilenet": (mobilenet_config, {"dwconv3x3": 4, "dwsep": 7,
-                                                 "bias_leaky_nhwc": 14}),
-                "darknet-s2d": (s2d_config, {"maxpool2x2": 5, "reorg_s2d": 1,
-                                             "bias_leaky_nhwc": 17}),
-                "tiny": (tiny_config, {"maxpool2x2": 5, "bias_leaky_nhwc": 4})}
+# the four paths the export takes; each program holds a custom-op call for each
+# launch of its route at 416
+EXPORT_PATHS = {"darknet": darknet_config, "mobilenet": mobilenet_config,
+                "darknet-s2d": s2d_config, "tiny": tiny_config}
 BASELINE1_ATOL = 1e-4       # BASELINE config 1, CPU against the card in f32: boxes
 RF_RTOL = 1e-3              # the effective receptive field, card against CPU in f32
 PRUNE_RATIO = 0.3
@@ -2506,10 +2525,10 @@ def host_detect(final: str) -> tuple[dict, dict]:
                                                     f"threshold {threshold} batch {i}")
                                     for i, x in enumerate(batches))
     launches = read_counters(counters)
-    # a forward for each of the two thresholds' fused and host calls a batch
-    want = per_batch(postprocess_fused=2 * len(batches),
-                     maxpool2x2=4 * len(batches) * DARKNET_PAIRS,
-                     bias_leaky_nhwc=4 * len(batches) * DARKNET_EPILOGUES)
+    # for each of the two thresholds, a batch's fused call and host call (its
+    # forward alone on the card)
+    calls = 2 * len(batches)
+    want = summed(launches_of(model, calls), launches_of(model, calls, post=False))
     if launches != want:
         raise AssertionError(f"deploy: detect_fn and detect_fn_host launched {launches}, "
                              f"expected {want}")
@@ -2577,10 +2596,12 @@ def export_paths() -> tuple[dict, dict]:
 
     DEPLOY_DIR.mkdir(parents=True, exist_ok=True)
     jobs, expect, info = {}, {}, {}
-    for name, (config_fn, ops) in EXPORT_PATHS.items():
+    for name, config_fn in EXPORT_PATHS.items():
         t0 = time.perf_counter()
         config = config_fn()
         _, anchors, model = build(config)
+        expect[name] = launches_of(model, post=False)
+        ops = {k: v for k, v in expect[name].items() if v}
         params, state, _ = load_weights_auto(config, model, rng_seed=0, device="cuda")
         folded = model.fold(params, state)
         program = export_program(model, folded, anchors, SIZE, batch=8)
@@ -2595,7 +2616,6 @@ def export_paths() -> tuple[dict, dict]:
                                                                               device="cuda"))
         torch.save((x, want), DEPLOY_DIR / f"{name}.io.pt")
         jobs[name] = [str(path), str(DEPLOY_DIR / f"{name}.io.pt")]
-        expect[name] = {k: ops.get(k, 0) for k in KERNELS}
         info[name] = {"ops": ops, "export_s": time.perf_counter() - t0,
                       "mb": os.path.getsize(path) / 2**20}
         log(f"[deploy] export {name}: {type(model).__name__}, kernels {sorted(model.pallas)}, "
@@ -2627,7 +2647,7 @@ def export_paths() -> tuple[dict, dict]:
             raise AssertionError(f"export {name}: the replay launched {got['launches']} "
                                  f"(expected {expect[name]}), bit-identical "
                                  f"{got['same_bits']}, max abs err {got['max_abs_err']:.3g}")
-        launches = {k: launches[k] + got["launches"][k] for k in KERNELS}
+        launches = summed(launches, got["launches"])
         info[name]["replay_launches"] = {k: v for k, v in got["launches"].items() if v}
     log(f"[deploy] a fresh process loaded the four programs (import "
         f"yolojax_torch.kernels.ops, torch.export.load) and replayed each bit-identical to "
@@ -2666,7 +2686,7 @@ def prune_paths(final: str) -> tuple[dict, dict]:
     counters = zero_counters()
     outs = [run(folded, seeded_images(90 + i, 8)) for i in range(DEPLOY_BATCHES)]
     launches = read_counters(counters)
-    if launches != scaled(DARKNET_LAUNCHES, DEPLOY_BATCHES) or not all(
+    if launches != launches_of(model, DEPLOY_BATCHES) or not all(
             bool(torch.isfinite(t).all()) for o in outs for t in (o.yx_min, o.yx_max, o.conf)):
         raise AssertionError(f"prune: the pruned model's detect launched {launches}")
     result = {"ratio": PRUNE_RATIO, "weights_before": count(full), "weights_after": count(model),
@@ -2690,7 +2710,7 @@ def prune_paths(final: str) -> tuple[dict, dict]:
     pruned_cfg.set("model", "channels", str(DEPLOY_DIR / "s2d_channels.json"))
     _, _, pruned = build(pruned_cfg)
     folded = pruned.fold(p2, s2)
-    expect = dict(S2D_LAUNCHES, nms_select=0)
+    expect = launches_of(pruned, post=False)
     x = seeded_images(91, 8)
     counters = zero_counters()
     with torch.inference_mode():
@@ -2708,7 +2728,7 @@ def prune_paths(final: str) -> tuple[dict, dict]:
         f"at {result['s2d_channels']}) with pool reorg: launches {s2d_launches} as the routing "
         f"gives (every conv → pool pair takes the kernel, at any width); f32 raw head "
         f"bit-identical to the plain forward")
-    return {k: launches[k] + s2d_launches[k] for k in KERNELS}, result
+    return summed(launches, s2d_launches), result
 
 
 def tools_paths() -> dict:
@@ -2741,14 +2761,16 @@ def tools_paths() -> dict:
         f"s): the same support, {abs(eff - cpu_eff) / abs(cpu_eff):.2g} apart")
 
     dots = {}
-    for name, (config_fn, _) in EXPORT_PATHS.items():
-        dot = plan_to_dot(build(config_fn())[2])
+    for name, config_fn in EXPORT_PATHS.items():
+        dot = plan_to_dot(model_of(config_fn()))
         if not (dot.startswith("digraph yolojax {") and dot.endswith("}")):
             raise AssertionError(f"plan_to_dot {name}: malformed")
         dots[name] = dot.count(" -> ")
-    text, code, program = graph_dump(build(s2d_config())[2], SIZE, "cuda")
+    s2d = model_of(s2d_config())
+    text, code, program = graph_dump(s2d, SIZE, "cuda")
     calls = {k: text.count(f"yolojax_torch.{k}.default(") for k in ("maxpool2x2", "reorg_s2d")}
-    if calls != {"maxpool2x2": DARKNET_PAIRS, "reorg_s2d": 1} or "def forward" not in code:
+    forward = launches_of(s2d, post=False)
+    if calls != {k: forward[k] for k in calls} or "def forward" not in code:
         raise AssertionError(f"demo_graph: the Darknet-s2d dump calls {calls}")
     result["plan_edges"], result["graph_lines"] = dots, text.count("\n")
     log(f"[deploy] plan_to_dot edges {dots}; demo_graph's Darknet-s2d program: "
@@ -2790,8 +2812,7 @@ def deploy_phase(card: str, final: str) -> tuple[dict, dict]:
     result = {"card": card, **host, "export": exported, "prune": pruned, **tools,
               "seconds": time.perf_counter() - t0}
     log(f"[deploy] the deploy phase took {result['seconds']:.1f} s")
-    launches = {k: host_launches[k] + export_launches[k] + prune_launches[k] for k in KERNELS}
-    return launches, result
+    return summed(host_launches, export_launches, prune_launches), result
 
 
 # -- the data-parallel phase -----------------------------------------------------
@@ -3076,14 +3097,14 @@ def dist_eval(ranks, eval_result: dict) -> tuple[dict, dict]:
     """(d): eval across the ranks against phase 11's one-process f32 card
     eval; every rank's launches.  Returns (launches, numbers)."""
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
-    want = scaled(DARKNET_LAUNCHES, batches)
-    launches = dict.fromkeys(KERNELS, 0)
+    want = launches_of(model_of(darknet_config()), batches)
+    launches = per_batch()
     for r in ranks:
         for dtype, got in r["eval"].items():
             if got["launches"] != want:
                 raise AssertionError(f"dist (d): a rank's {dtype} eval launched "
                                      f"{got['launches']}, expected {want}")
-            launches = {k: launches[k] + got["launches"][k] for k in KERNELS}
+            launches = summed(launches, got["launches"])
     f32 = ranks[0]["eval"]["float32"]
     gap = {"map": abs(f32["map"] - eval_result["f32_card_map"]),
            "ap": max(abs(f32["ap"][k] - v) for k, v in eval_result["f32_card_ap"].items())}
@@ -3223,9 +3244,11 @@ def gate_chain(card: str) -> tuple[dict, dict]:
     art = json.loads(out.read_text())
     test_images = min(max(100, GATE_IMAGES // 6), GATE_IMAGES // 2)   # generate_voc's split
     batches = math.ceil(test_images / 20)
-    want = per_batch(postprocess_fused=8 * batches, nms_select=batches,
-                     maxpool2x2=9 * batches * DARKNET_PAIRS,
-                     bias_leaky_nhwc=9 * batches * DARKNET_EPILOGUES)
+    # the grid's evals on config.ini's route, then the kernel eval's at 416
+    model = model_of(darknet_config())
+    tokens = frozenset(gate.KERNEL_EVALS["darknet"][0].split())
+    want = summed(*(launches_of(model, batches, size) for _ in gate.MODES for size in gate.SIZES),
+                  launches_of(dataclasses.replace(model, pallas=tokens), batches))
     maps = art["map"]
     if (rc not in (0, 1) or len(maps) != 8
             or not all(np.isfinite(v) and 0 <= v <= 1 for v in maps.values())
@@ -3390,7 +3413,7 @@ def prune_phase(card: str) -> tuple[dict, dict]:
 
     from yolojax_torch import cli
     from yolojax_torch.cli.common import build
-    from yolojax_torch.tools import prune_gate
+    from yolojax_torch.tools import prune_gate, synth_gate
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3413,12 +3436,13 @@ def prune_phase(card: str) -> tuple[dict, dict]:
     dense = sum(d.out_ch for d in dense_model.layer_defs if d.name in channels)
     test_images = min(max(100, PRUNE_IMAGES // 6), PRUNE_IMAGES // 2)   # generate_voc's split
     batches = math.ceil(test_images / 20)
-    want = scaled(DARKNET_LAUNCHES, len(PRUNE_EVALS) * batches)
+    per_eval = launches_of(dense_model, batches)
+    want = scaled(per_eval, len(PRUNE_EVALS))
+    # the gate's own counts leave out the kernels it counts no launches of
+    counted = {k: v for k, v in per_eval.items() if v and k in synth_gate.launches()}
     maps = {k: art[f"map_{k}_416"] for k in PRUNE_EVALS}
     if (rc not in (0, 1) or launches != want
-            or art["eval_launches"] != {k: {"postprocess_fused": batches,
-                                            "maxpool2x2": DARKNET_PAIRS * batches}
-                                        for k in PRUNE_EVALS}
+            or art["eval_launches"] != dict.fromkeys(PRUNE_EVALS, counted)
             or not art["channels_kept"] < dense or art["source"]["step"] != PRUNE_STEPS
             or not all(np.isfinite(v) and 0 <= v <= 1 for v in maps.values())):
         raise AssertionError(f"prune gate: exit {rc}, launches {launches} (expected {want}), "
@@ -3449,27 +3473,22 @@ BENCH_WARM_CALLS = 2        # detect calls before an infer or latency run's time
 SUSTAINED_SECONDS = 10
 BENCH_DW = "nms,fusedpost,dwconv,dwsep"
 BENCH_FRESH_LATENCY = 3     # latency runs, each in a process of its own
-# the bench's MobileNet without its forward kernels: every conv's epilogue on
-# bias_leaky_nhwc (Tiny's and Darknet-19's conv → pool pairs take maxpool2x2 on
-# every route, so the ``pool`` token changes nothing on them)
-BENCH_MOBILENET = per_batch(postprocess_fused=1, bias_leaky_nhwc=32)
-# (label, environment, kernel launches per detect call): each run is
-# ``python -m yolojax_torch.tools.bench``'s ``main`` under that environment
+# (label, environment): each run is ``python -m yolojax_torch.tools.bench``'s
+# ``main`` under that environment
 BENCH_RUNS = [
-    ("infer darknet 416", {}, DARKNET_LAUNCHES),
-    ("infer darknet 320", {"BENCH_SIZE": "320"}, DARKNET_LAUNCHES),
-    ("infer darknet 608", {"BENCH_SIZE": "608"}, DARKNET_LAUNCHES),
-    ("infer tiny 416", {"BENCH_MODEL": "tiny"}, TINY_LAUNCHES),
-    ("infer mobilenet 416", {"BENCH_MODEL": "mobilenet"}, BENCH_MOBILENET),
-    ("infer darknet 416 nms", {"BENCH_PALLAS": "nms"}, DARKNET_NMS_LAUNCHES),
-    ("infer mobilenet 416 " + BENCH_DW, {"BENCH_MODEL": "mobilenet", "BENCH_PALLAS": BENCH_DW},
-     MOBILENET_LAUNCHES),
-    ("latency darknet 416", {"BENCH_MODE": "latency"}, DARKNET_LAUNCHES),
-    ("train darknet 416 B=16", {"BENCH_MODE": "train", "BENCH_BATCH": "16"}, per_batch()),
-    ("e2e darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16"}, per_batch()),
+    ("infer darknet 416", {}),
+    ("infer darknet 320", {"BENCH_SIZE": "320"}),
+    ("infer darknet 608", {"BENCH_SIZE": "608"}),
+    ("infer tiny 416", {"BENCH_MODEL": "tiny"}),
+    ("infer mobilenet 416", {"BENCH_MODEL": "mobilenet"}),
+    ("infer darknet 416 nms", {"BENCH_PALLAS": "nms"}),
+    ("infer mobilenet 416 " + BENCH_DW, {"BENCH_MODEL": "mobilenet", "BENCH_PALLAS": BENCH_DW}),
+    ("latency darknet 416", {"BENCH_MODE": "latency"}),
+    ("train darknet 416 B=16", {"BENCH_MODE": "train", "BENCH_BATCH": "16"}),
+    ("e2e darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16"}),
     ("e2e devdata darknet 416 B=16", {"BENCH_MODE": "e2e", "BENCH_BATCH": "16",
-                                      "BENCH_E2E_DEVDATA": "1"}, per_batch()),
-    ("pipeline 416 B=128", {"BENCH_MODE": "pipeline"}, per_batch()),
+                                      "BENCH_E2E_DEVDATA": "1"}),
+    ("pipeline 416 B=128", {"BENCH_MODE": "pipeline"}),
 ]
 BENCH_ENV = ("BENCH_BATCH", "BENCH_ITERS", "BENCH_MODE", "BENCH_MODEL", "BENCH_SIZE",
              "BENCH_PALLAS", "BENCH_SATURATED", "BENCH_E2E_DEVDATA", "BENCH_E2E_DECOMP")
@@ -3485,6 +3504,18 @@ def bench_metric(env: dict) -> str:
     if mode == "e2e" and env.get("BENCH_E2E_DEVDATA") == "1":
         mode = "e2e_devdata"
     return f"yolov2{tag}_{size}_{mode}_images_per_sec_per_chip"
+
+
+def bench_launches(env: dict, calls: int) -> dict:
+    """The launches of ``calls`` detect calls of ``tools/bench.py``'s model
+    under ``env``: ``flagship(backbone=BENCH_MODEL)`` with the BENCH_PALLAS
+    tokens at BENCH_SIZE."""
+    from yolojax_torch.entry import flagship
+
+    model = flagship(backbone=env.get("BENCH_MODEL", "darknet"))
+    tokens = frozenset(env.get("BENCH_PALLAS", "").split(",")) - {""}
+    model.pallas = tokens or model.pallas
+    return launches_of(model, calls, int(env.get("BENCH_SIZE", SIZE)))
 
 
 def bench_run(env: dict) -> tuple[dict, dict, float]:
@@ -3566,7 +3597,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
         has_cv2 = False
     total = per_batch()
     runs = {}
-    for what, env, per_call in BENCH_RUNS:
+    for what, env in BENCH_RUNS:
         mode = env.get("BENCH_MODE", "infer")
         if mode in ("e2e", "pipeline") and not has_cv2:
             try:
@@ -3582,7 +3613,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
         line, launches, seconds = bench_run(env)
         calls = {"infer": BENCH_WARM_CALLS + BENCH_ITERS,
                  "latency": BENCH_WARM_CALLS + max(BENCH_ITERS, 100)}.get(mode, 0)
-        want = scaled(per_call, calls)
+        want = bench_launches(env, calls)
         unit = "ms" if mode == "latency" else "images/sec"
         if (line.get("metric") != bench_metric(env) or line.get("unit") != unit
                 or not (math.isfinite(line.get("value", math.nan)) and line["value"] > 0)
@@ -3593,7 +3624,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
         runs[what] = {"metric": line["metric"], "value": line["value"], "unit": unit,
                       "launches": {k: v for k, v in launches.items() if v},
                       "seconds": seconds}
-        total = {k: total[k] + launches[k] for k in total}
+        total = summed(total, launches)
         log(f"[bench] {what}: {line['metric']} = {line['value']} {unit} "
             f"(BENCH_ITERS={BENCH_ITERS}); launches {runs[what]['launches'] or 'none'} "
             f"over {calls} detect calls; {seconds:.1f} s")
@@ -3618,7 +3649,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     rec = json.loads(out.read_text())
-    want = scaled(DARKNET_LAUNCHES, BENCH_WARM_CALLS + rec["dispatches"])
+    want = bench_launches({}, BENCH_WARM_CALLS + rec["dispatches"])
     if (rc != 0 or launches != want or rec["metric"] != "sustained_infer_416"
             or [json.loads(line) for line in printed.getvalue().splitlines()] != [rec]
             or not rec["window_rate_p5"] <= rec["window_rate_p50"] <= rec["window_rate_p95"]
@@ -3626,7 +3657,7 @@ def bench_phase(card: str) -> tuple[dict, dict]:
             or rec["seconds"] < SUSTAINED_SECONDS):
         raise AssertionError(f"sustained bench: exit {rc}, record {rec}, launches {launches} "
                              f"(expected {want})")
-    total = {k: total[k] + launches[k] for k in total}
+    total = summed(total, launches)
     log(f"[bench] sustained {rec['seconds']} s: {rec['value']} img/s over {rec['windows']} "
         f"windows, p5/p50/p95 {rec['window_rate_p5']} / {rec['window_rate_p50']} / "
         f"{rec['window_rate_p95']}, drift {rec['drift_last_vs_first_quartile']}, RSS "
@@ -3902,7 +3933,7 @@ def nodes_run(card: str) -> tuple[dict, dict]:
     ranks_s = time.perf_counter() - t0
     batches = -(-EVAL_IMAGES // global_batch)
     want_launches = {"train": per_batch(), "parity": per_batch(),
-                     "eval": scaled(DARKNET_LAUNCHES, batches)}
+                     "eval": launches_of(model_of(darknet_config()), batches)}
     for r, rec in enumerate(ranks):
         want_env = {"RANK": str(r), "LOCAL_RANK": "0", "WORLD_SIZE": str(NODES),
                     "LOCAL_WORLD_SIZE": "1", "GROUP_RANK": str(r)}
@@ -4024,6 +4055,7 @@ def c80_run(card: str) -> tuple[dict, dict]:
     Returns (launches, numbers)."""
     import io
 
+    from yolojax_torch.entry import flagship
     from yolojax_torch.tools import c80_fusedpost
 
     counters = zero_counters()
@@ -4045,8 +4077,8 @@ def c80_run(card: str) -> tuple[dict, dict]:
     # forwards: a route's first, warm and timed calls and its post kernel's head, and
     # one a route on the dense head
     forwards = 2 * (3 + C80_ITERS) + 2
-    want = per_batch(**calls, maxpool2x2=DARKNET_PAIRS * forwards,
-                     bias_leaky_nhwc=DARKNET_EPILOGUES * forwards)
+    model = flagship(num_classes=c80_fusedpost.CLASSES)
+    want = summed(per_batch(**calls), launches_of(model, forwards, post=False))
     dense = row["same_boxes_init_objectness"]
     if (rc != 0 or line["device"] != card or launches != want
             or any(row[r]["launches_per_call"] != per_call[r] for r in per_call)
@@ -4170,9 +4202,9 @@ def bench_all_run(card: str) -> tuple[dict, dict]:
     """(c) ``python -m yolojax_torch.tools.bench_all --only LATENCY TINY`` in
     this process at BENCH_ITERS=BENCH_ALL_ITERS, each job's bench run as
     ``chip_smoke.py --bench-launches`` (the bench counting its launches):
-    one artifact a job with the card and the launches, one fused decode+NMS
-    and the forward's epilogues (23 Darknet-19, 9 Tiny) a detect call (2
-    warm calls and max(iters, 100) at B=1, 2 + iters for Tiny).  Returns
+    one artifact a job with the card and the launches its route gives a
+    detect call (2 warm calls and max(iters, 100) at B=1, 2 + iters for
+    Tiny).  Returns
     (launches, numbers)."""
     import io
     import os
@@ -4193,9 +4225,11 @@ def bench_all_run(card: str) -> tuple[dict, dict]:
         os.environ.pop("BENCH_ITERS")
         if saved[2] is not None:
             os.environ["BENCH_ITERS"] = saved[2]
-    want = {"LATENCY": scaled(DARKNET_LAUNCHES, BENCH_WARM_CALLS + max(BENCH_ALL_ITERS, 100)),
-            "TINY": scaled(TINY_LAUNCHES, BENCH_WARM_CALLS + BENCH_ALL_ITERS)}
-    launches, numbers = dict.fromkeys(KERNELS, 0), {}
+    jobs = dict(bench_all.JOBS)
+    want = {"LATENCY": bench_launches(jobs["LATENCY"], BENCH_WARM_CALLS + max(BENCH_ALL_ITERS,
+                                                                               100)),
+            "TINY": bench_launches(jobs["TINY"], BENCH_WARM_CALLS + BENCH_ALL_ITERS)}
+    launches, numbers = per_batch(), {}
     for tag in BENCH_ALL_JOBS:
         path = out_dir / f"BENCH_{tag}_rsmoke.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
@@ -4203,7 +4237,7 @@ def bench_all_run(card: str) -> tuple[dict, dict]:
         if rc != 0 or rec.get("device") != card or got != [want[tag]]:
             raise AssertionError(f"bench_all {tag}: exit {rc}, artifact {rec}; printed "
                                  f"{printed.getvalue()[-2000:]}")
-        launches = {k: launches[k] + got[0][k] for k in KERNELS}
+        launches = summed(launches, got[0])
         numbers[tag] = {"metric": rec["metric"], "value": rec["value"]}
         log(f"[bench_all] {tag}: {rec['metric']} = {rec['value']} {rec['unit']} "
             f"(BENCH_ITERS={BENCH_ALL_ITERS}) -> {path.relative_to(ROOT)}; launches {got[0]}")
@@ -4315,7 +4349,7 @@ def yolo9000_path() -> tuple[dict, dict, float]:
         del model.apply_folded
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    want = scaled(YOLO9000_LAUNCHES, len(batches))
+    want = launches_of(model, len(batches), size)
     if launches != want:
         raise AssertionError(f"yolo9000: {len(batches)} batches launched {launches}, "
                              f"expected {want}")
@@ -4468,22 +4502,22 @@ def main() -> None:
     dark_t = darknet_times(dark_model, dark_folded, dark_run, card)
     del dark_model, dark_folded, dark_run
     mob_model, mob_folded, mob_run, mob_launches = kernel_path(
-        "mobilenet", mobilenet_config, MOBILENET_LAUNCHES, DW_TOKENS, exact=False)
+        "mobilenet", mobilenet_config, DW_TOKENS, exact=False)
     epilogue_err = max(epilogue_err, epilogue_vs_plain(mob_model, mob_folded, "mobilenet"))
     dw_t = dw_times(card)
     detect_times(mob_model, mob_folded, mob_run, DW_TOKENS, "MobileNet", card)
     del mob_model, mob_folded, mob_run
     s2d_model, s2d_folded, s2d_run, s2d_launches = kernel_path(
-        "darknet-s2d", s2d_config, S2D_LAUNCHES, {"pool", "reorg"}, exact=True)
+        "darknet-s2d", s2d_config, {"pool", "reorg"}, exact=True)
     epilogue_err = max(epilogue_err, epilogue_vs_plain(s2d_model, s2d_folded, "darknet-s2d"))
-    fused_routing(s2d_model, s2d_folded, "darknet-s2d", {"pool", "reorg"}, DARKNET_PAIRS, 1)
+    fused_routing(s2d_model, s2d_folded, "darknet-s2d", {"pool", "reorg"})
     nms_t = nms_times(s2d_model, s2d_folded, card)
     detect_times(s2d_model, s2d_folded, s2d_run, {"pool", "reorg"}, "Darknet-s2d", card)
     del s2d_model, s2d_folded, s2d_run
     tiny_model, tiny_folded, tiny_run, tiny_launches = kernel_path(
-        "tiny", tiny_config, TINY_LAUNCHES, {"pool"}, exact=True)
+        "tiny", tiny_config, {"pool"}, exact=True)
     epilogue_err = max(epilogue_err, epilogue_vs_plain(tiny_model, tiny_folded, "tiny"))
-    fused_routing(tiny_model, tiny_folded, "tiny", {"pool"}, len(TINY_POOLS), 0)
+    fused_routing(tiny_model, tiny_folded, "tiny", {"pool"})
     detect_times(tiny_model, tiny_folded, tiny_run, {"pool"}, "Tiny", card)
     del tiny_model, tiny_folded, tiny_run
     layout_t = layout_times(card)

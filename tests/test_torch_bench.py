@@ -151,9 +151,14 @@ def _plan(model) -> list:
                                 {"tiny": True}, {"backbone": "mobilenet"},
                                 {"backbone": "mobilenet", "tiny": True}, {"num_classes": 80}])
 def test_flagship_matches_the_reference(kw):
+    """The port spells the reference's ``tiny=True`` ``backbone="tiny"``; a
+    ``backbone`` given takes precedence, as in the reference."""
     from __graft_entry__ import _flagship
 
-    want, got = _flagship(**kw), tentry.flagship(**kw)
+    port_kw = {k: v for k, v in kw.items() if k != "tiny"}
+    if kw.get("tiny"):
+        port_kw.setdefault("backbone", "tiny")
+    want, got = _flagship(**kw), tentry.flagship(**port_kw)
     assert type(got).__name__ == type(want).__name__
     np.testing.assert_array_equal(np.asarray(got.anchors), np.asarray(want.anchors))
     assert got.num_classes == want.num_classes and got.pallas == want.pallas

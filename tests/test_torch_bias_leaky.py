@@ -1,14 +1,11 @@
-"""Port parity: the one-pass bias + leaky epilogue (``kernels/epilogue.py``)
-and the folded walk's routing into it.
+"""Port parity: the one-pass bias + leaky epilogue (``kernels/epilogue.py``).
 
 On the CPU the wrapper runs its plain version, ``blocks.bias_leaky`` on the
 NCHW view; it is held bit for bit to ``bias_leaky`` and to the JAX engine's
 folded epilogue ``_post_conv`` (one f32 add, one f32 multiply, one rounding
-on both sides).  The routing test walks each bench path's plan at 416 with
-the convolutions and depthwise kernels replaced by zeros of their output
-shapes (the count of epilogues depends on the shapes alone) and counts the
-epilogues each route takes.  On the card the kernel is held to its plain
-version in ``tests/test_torch_cuda_bias_leaky.py``.
+on both sides).  The epilogues each path's route sends to the wrapper are
+counted in ``tests/test_torch_route.py``.  On the card the kernel is held to
+its plain version in ``tests/test_torch_cuda_bias_leaky.py``.
 """
 
 import jax.numpy as jnp
@@ -18,16 +15,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from yolojax.models.engine import _post_conv
-from yolojax_torch.kernels import dwconv as dk
-from yolojax_torch.kernels import dwsep as sk
 from yolojax_torch.kernels import epilogue as ek
 from yolojax_torch.kernels import ops
-from yolojax_torch.kernels import pool as pk
-from yolojax_torch.kernels import reorg as rk
-from yolojax_torch.models import engine
 from yolojax_torch.models.blocks import bias_leaky
-from yolojax_torch.models.darknet import Darknet, Tiny
-from yolojax_torch.models.mobilenet import MobileNet
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -85,63 +75,3 @@ def test_custom_op_fake_gives_the_wrappers_shape_and_dtype(dtype):
         fake = ops.bias_leaky_nhwc(mode.from_tensor(x), mode.from_tensor(bias), True)
     assert (fake.shape, fake.dtype, fake.stride()) == (want.shape, want.dtype, want.stride())
     assert torch.equal(ops.bias_leaky_nhwc(x, bias, True), want)
-
-
-# -- the folded walk's routing --------------------------------------------------
-
-def _zeros_like_conv(x, w, *, stride=1, groups=1):
-    k = w.shape[-1]
-    h, wd = ((n + 2 * (k // 2) - k) // stride + 1 for n in x.shape[2:])
-    return x.new_zeros((x.shape[0], w.shape[0], h, wd)).contiguous(
-        memory_format=torch.channels_last)
-
-
-def _zeros_dwconv(x, w, b, stride=1, act=True):
-    b_, h, wd, c = x.shape
-    return x.new_zeros((b_, (h - 1) // stride + 1, (wd - 1) // stride + 1, c))
-
-
-def _zeros_dwsep(x, wd, bd, wp, bp, stride=1, wp_t=None):
-    b_, h, w, _ = x.shape
-    return x.new_zeros((b_, (h - 1) // stride + 1, (w - 1) // stride + 1, wp.shape[1]))
-
-
-# (model, pallas tokens, extra fields) -> epilogues on the wrapper per forward,
-# the bench's paths and the two fused-pool paths (PERF.md §4): every conv → 2×2/2
-# pair's epilogue runs in the pool kernel, whatever the tokens (Darknet's five,
-# Tiny's c1-c5), the s2d reorg takes c21's
-ROUTES = {
-    "darknet": (Darknet, {"nms", "fusedpost"}, {}, 18),
-    "darknet-s2d": (Darknet, {"nms", "pool", "reorg"}, {"reorg_order": "s2d"}, 17),
-    "tiny": (Tiny, {"nms", "fusedpost", "pool"}, {}, 4),
-    "mobilenet": (MobileNet, {"nms", "fusedpost", "dwsep", "dwconv"}, {}, 14),
-}
-
-
-@pytest.mark.parametrize("name", ROUTES)
-def test_folded_walk_sends_every_unfused_epilogue_through_the_wrapper(monkeypatch, name):
-    cls, pallas, kw, want = ROUTES[name]
-    model = cls(anchors=np.ones((5, 2), np.float32), num_classes=20, dtype=torch.float32,
-                pallas=frozenset(pallas), **kw)
-    folded = model.fold(*model.init(torch.Generator().manual_seed(0)))
-    calls = {}
-
-    def counted(module, attr, fn, layers=1):
-        def spy(*args):
-            calls[attr] = calls.get(attr, 0) + layers
-            return fn(*args)
-        monkeypatch.setattr(module, attr, spy)
-
-    monkeypatch.setattr(engine, "conv", _zeros_like_conv)
-    counted(ek, "bias_leaky_nhwc", ek.bias_leaky_nhwc)
-    counted(dk, "dwconv3x3", _zeros_dwconv)
-    counted(sk, "dwsep", _zeros_dwsep, layers=2)
-    counted(pk, "maxpool2x2", pk.maxpool2x2)
-    counted(rk, "reorg_s2d", rk.reorg_s2d)
-    with torch.no_grad():
-        out = model.apply_folded(folded, torch.zeros(1, 416, 416, 3))
-    assert out.shape == (1, 13, 13, 125)
-    assert calls["bias_leaky_nhwc"] == want
-    # every conv's epilogue ran once: in the wrapper or in the kernel that took it
-    taken = sum(calls.get(k, 0) for k in ("maxpool2x2", "reorg_s2d", "dwconv3x3", "dwsep"))
-    assert want + taken == len(model.layer_defs)

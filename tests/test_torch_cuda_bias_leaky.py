@@ -22,6 +22,7 @@ import torch
 from yolojax_torch.kernels import epilogue as ek
 from yolojax_torch.models.blocks import bias_leaky
 from yolojax_torch.models.darknet import Darknet
+from yolojax_torch.models.inference import Inference
 from yolojax_torch.models.mobilenet import MobileNet
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -128,10 +129,10 @@ def test_cuda_bias_leaky_refuses_what_it_does_not_take(cuda_device):
         ek.bias_leaky_nhwc(x, torch.zeros(8, device="cuda", dtype=torch.bfloat16))
 
 
-# (model, pallas tokens, kernel launches per forward): the bench's two paths;
-# Darknet's five conv → pool pairs take their epilogue in maxpool2x2
-FORWARDS = {"darknet": (Darknet, {"nms", "fusedpost"}, 18),
-            "mobilenet": (MobileNet, {"nms", "fusedpost", "dwsep", "dwconv"}, 14)}
+# (model, pallas tokens): the bench's two paths; each forward launches the
+# epilogues its route gives (``Inference.launches``)
+FORWARDS = {"darknet": (Darknet, {"nms", "fusedpost"}),
+            "mobilenet": (MobileNet, {"nms", "fusedpost", "dwsep", "dwconv"})}
 
 
 @pytest.mark.cuda
@@ -142,9 +143,10 @@ def test_cuda_folded_forward_is_bit_identical_to_the_plain_epilogues(cuda_device
     on the kernel equals the same forward with ``bias_leaky`` in its place,
     bit for bit (the same cuDNN calls, deterministic algorithms)."""
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cls, pallas, launches = FORWARDS[name]
+    cls, pallas = FORWARDS[name]
     model = cls(anchors=np.ones((5, 2), np.float32), num_classes=20, dtype=torch.bfloat16,
                 pallas=frozenset(pallas))
+    launches = Inference(model).launches(416, post=False)["bias_leaky_nhwc"]
     params, state = model.init(torch.Generator().manual_seed(0), device=cuda_device)
     folded = model.fold(params, state)
     x = torch.rand(8, 416, 416, 3, generator=torch.Generator(device="cuda").manual_seed(1),

@@ -25,6 +25,7 @@ from yolojax_torch.kernels import nms as nk
 from yolojax_torch.kernels import pool as pk
 from yolojax_torch.kernels import reorg as rk
 from yolojax_torch.models.darknet import Darknet, Tiny, Yolo9000
+from yolojax_torch.models.inference import Inference
 from yolojax_torch.ops import reorg as ops_reorg
 from yolojax_torch.ops.nms import nms_select as nms_plain
 
@@ -199,12 +200,11 @@ def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, m
     if model_name == "tiny":
         model = Tiny(anchors=np.ones((5, 2), np.float32), num_classes=20,
                      dtype=DTYPES[dtype], pallas=frozenset({"pool"}))
-        launches = {"maxpool2x2": 5, "reorg_s2d": 0}
     else:
         model = Darknet(anchors=np.ones((5, 2), np.float32), num_classes=20,
                         dtype=DTYPES[dtype], pallas=frozenset({"pool", "reorg"}),
                         reorg_order="s2d")
-        launches = {"maxpool2x2": 5, "reorg_s2d": 1}
+    launches = Inference(model).launches(128, post=False)
     params, state = model.init(torch.Generator().manual_seed(0), device=cuda_device)
     folded = model.fold(params, state)
     x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (2, 128, 128, 3))
@@ -216,7 +216,7 @@ def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, m
         monkeypatch.setattr(pk, "maxpool2x2", pk.maxpool2x2_plain)
         want = dataclasses.replace(model, pallas=frozenset()).apply_folded(folded, x)
     torch.cuda.synchronize()
-    assert counts == (launches["maxpool2x2"], launches["reorg_s2d"])
+    assert counts == (launches["maxpool2x2"], launches.get("reorg_s2d", 0))
     assert torch.isfinite(got).all()
     if dtype == "float32":
         _assert_bits(got, want)
@@ -225,11 +225,11 @@ def test_cuda_routed_forward_is_bit_identical_to_the_unrouted_one(cuda_device, m
         assert diff <= 0.01
 
 
-# (model, anchors, classes, its conv → 2×2/2 pairs): the bench's two
-# Darknet-trunk configurations (YOLO9000 with its 9 418-node synthetic tree),
-# and Tiny, whose sixth pool (stride 1) keeps max_pool
-POOLED_FORWARDS = {"darknet": (Darknet, 5, 20, 5), "yolo9000": (Yolo9000, 3, 9418, 5),
-                   "tiny": (Tiny, 5, 20, 5)}
+# (model, anchors, classes): the bench's two Darknet-trunk configurations
+# (YOLO9000 with its 9 418-node synthetic tree), and Tiny, whose sixth pool
+# (stride 1) keeps max_pool; each forward launches the pools its route gives
+POOLED_FORWARDS = {"darknet": (Darknet, 5, 20), "yolo9000": (Yolo9000, 3, 9418),
+                   "tiny": (Tiny, 5, 20)}
 
 
 @pytest.mark.cuda
@@ -241,9 +241,10 @@ def test_cuda_pooled_forward_is_bit_identical_to_the_plain_pools(cuda_device, mo
     ``maxpool2x2_plain`` (``bias_leaky`` then ``F.max_pool2d``) in its place,
     bit for bit (the same cuDNN calls, deterministic algorithms)."""
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cls, anchors, classes, pools = POOLED_FORWARDS[name]
+    cls, anchors, classes = POOLED_FORWARDS[name]
     model = cls(anchors=np.ones((anchors, 2), np.float32), num_classes=classes,
                 dtype=torch.bfloat16, pallas=frozenset({"nms", "fusedpost"}))
+    pools = Inference(model).launches(416, post=False)["maxpool2x2"]
     params, state = model.init(torch.Generator().manual_seed(0), device=cuda_device)
     folded = model.fold(params, state)
     g = torch.Generator(device="cuda").manual_seed(1)

@@ -22,7 +22,7 @@ from yolojax.models import ChannelResolver as JChannelResolver
 from yolojax.utils import checkpoint as jckpt
 from yolojax_torch.cli.common import build, load_weights_auto
 from yolojax_torch.config import load_config, parse_attr, torch_dtype
-from yolojax_torch.models import ChannelResolver, build_model, kernel_active
+from yolojax_torch.models import PORTED_KERNELS, ChannelResolver, build_model, kernel_active
 from yolojax_torch.models.blocks import BNConfig, fold_bn, leaky_relu
 from yolojax_torch.models.darknet import Darknet
 from yolojax_torch.models.engine import run_plan
@@ -165,7 +165,8 @@ def test_config_resolves_to_the_port():
     assert model.pallas == frozenset({"nms", "fusedpost"}) and model.reorg_order == "darknet"
     assert kernel_active("fusedpost", model.pallas)
     assert kernel_active("nms", model.pallas)          # ported; fusedpost takes precedence
-    assert not kernel_active("pool", model.pallas) and not kernel_active("reorg", model.pallas)
+    assert not kernel_active("reorg", model.pallas)
+    assert "pool" not in PORTED_KERNELS     # accepted; selects nothing (engine.route)
     assert parse_attr("yolojax.data.transform.stretch").__module__ == \
         "yolojax_torch.data.transform"
     assert parse_attr("yolojax.data.device_cache.DeviceDataset").__module__ == \

@@ -38,6 +38,7 @@ from yolojax_torch.kernels import _build
 from yolojax_torch.kernels import nms as nk
 from yolojax_torch.kernels import pool as pk
 from yolojax_torch.kernels import reorg as rk
+from yolojax_torch.models.blocks import max_pool
 from yolojax_torch.models.darknet import Darknet
 from yolojax_torch.models.engine import run_plan
 from yolojax_torch.models.inference import Inference
@@ -245,19 +246,22 @@ def test_reorg_token_takes_the_kernel_only_in_s2d_order(rng, monkeypatch, order)
 
 
 def test_pool_gate_reads_the_nchw_shape(rng, monkeypatch):
-    """C from x.shape[1], H and W from x.shape[2:]; only 2×2/2 pools."""
+    """H and W from x.shape[2:], at any C and under any tokens; only 2×2/2
+    pools over an even H and W take the kernel, the rest ``max_pool``."""
     calls = []
     _spy(monkeypatch, pk, "maxpool2x2", calls, "pool")
     for shape, plan, routed in [((1, 4, 6, 128), [("pool", 2, 2)], True),
                                 ((1, 4, 5, 128), [("pool", 2, 2)], False),   # odd W
-                                ((1, 128, 128, 64), [("pool", 2, 2)], False),  # C 64
+                                ((1, 128, 128, 64), [("pool", 2, 2)], True),  # C 64
+                                ((1, 4, 6, 5), [("pool", 2, 2)], True),     # C 5, W 6
                                 ((1, 4, 4, 128), [("pool", 2, 1)], False)]:
-        calls.clear()
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-        got = run_plan(plan, {}, x, compute_dtype=torch.float32, pallas=frozenset({"pool"}))
-        assert calls == ([("pool", shape)] if routed else []), shape
-        want = run_plan(plan, {}, x, compute_dtype=torch.float32)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        want = max_pool(x.permute(0, 3, 1, 2), *plan[0][1:]).permute(0, 2, 3, 1)
+        for pallas in (frozenset({"pool"}), frozenset()):
+            calls.clear()
+            got = run_plan(plan, {}, x, compute_dtype=torch.float32, pallas=pallas)
+            assert calls == ([("pool", shape)] if routed else []), shape
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # -- the wrappers' contracts -------------------------------------------------

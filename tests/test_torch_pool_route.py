@@ -1,12 +1,14 @@
-"""The folded walk's conv → 2×2/2 max-pool route (``models/engine.py``).
+"""The folded walk's max-pool rule (``models/engine.py::route``).
 
-Every conv whose output feeds a 2×2 stride-2 pool, directly or through one
-``mark``, hands its raw output and bias to ``kernels/pool.py::maxpool2x2``
-under any ``[model] pallas`` tokens and at any channel count, with ``full``
-where the ``mark`` sits between them, and the slot then holds the
-full-resolution epilogue output.  An odd H or W, a stride-1 pool and a pool
-that follows no conv keep ``bias_leaky_nhwc`` and ``max_pool`` (the last
-keeps the ``pool`` token's lane-gated route).
+Every conv whose output feeds a 2×2 stride-2 pool of even H and W, directly
+or through one ``mark``, hands its raw output and bias to
+``kernels/pool.py::maxpool2x2`` under any ``[model] pallas`` tokens and at
+any channel count, with ``full`` where the ``mark`` sits between them, and
+the slot then holds the full-resolution epilogue output.  A pool that
+follows no conv runs in the kernel bare, at any channel count and under any
+tokens.  An odd H or W and a stride-1 pool keep ``bias_leaky_nhwc`` and
+``max_pool``.  The pairs each model's route takes are pinned in
+``tests/test_torch_route.py``.
 
 On the CPU the wrapper runs its plain version, so the folded forward equals
 the same walk with ``maxpool2x2_plain`` in its place exactly.  Calls are
@@ -25,12 +27,8 @@ from yolojax_torch.models.blocks import bias_leaky, conv, max_pool
 from yolojax_torch.models.darknet import Darknet, Tiny
 
 TOKENS = frozenset({"nms", "fusedpost"})
-# (model, the convs whose output feeds a 2×2/2 pool, in plan order, with the
-# mark's full output where one sits between), full width at 64²
-MODELS = {"darknet": (Darknet, [("c1", False), ("c2", False), ("c5", False), ("c8", False),
-                                ("c13", True)]),
-          "tiny": (Tiny, [("c1", False), ("c2", False), ("c3", False), ("c4", False),
-                          ("c5", False)])}
+# full width at 64²
+MODELS = {"darknet": Darknet, "tiny": Tiny}
 
 
 def _folded(cls, dtype=torch.float32):
@@ -62,8 +60,14 @@ def _record(monkeypatch, module, name, log):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_every_conv_pool_pair_takes_the_pool_kernel_with_its_bias(monkeypatch, name):
-    cls, pairs = MODELS[name]
-    model, folded = _folded(cls)
+    model, folded = _folded(MODELS[name])
+    # the convs whose output feeds a 2×2/2 pool, in plan order, with the mark's
+    # full output where one sits between
+    pairs = [(s.layer.name, s.key is not None)
+             for s in engine.route(model.plan, pallas=model.pallas, reorg_order="darknet",
+                                   dtype=model.dtype, channels=3, height=64, width=64)
+             if s.kernel == "maxpool2x2"]
+    assert pairs
     convs, pools, epilogues = [], [], []
     _record(monkeypatch, engine, "conv", convs)
     _record(monkeypatch, pk, "maxpool2x2", pools)
@@ -87,8 +91,9 @@ def test_every_conv_pool_pair_takes_the_pool_kernel_with_its_bias(monkeypatch, n
         assert torch.equal(full13, ek.bias_leaky_nhwc_plain(x13, b13))
 
 
-# (plan of one conv ``d`` and one pool, input NHWC shape, pallas tokens): only a
-# lane-aligned pool after no conv under the ``pool`` token takes the bare kernel
+# (plan of one conv ``d`` and one pool, input NHWC shape, pallas tokens): a 2×2/2
+# pool over an even H and W after no conv takes the bare kernel, at any C and
+# under any tokens
 UNFUSED = {
     "odd-h": (lambda d: [("conv", d), ("pool", 2, 2)], (1, 5, 6, 3), TOKENS),
     "odd-w": (lambda d: [("conv", d), ("pool", 2, 2)], (1, 6, 5, 3), TOKENS),
@@ -117,7 +122,7 @@ def test_pools_the_kernel_does_not_fuse_keep_bias_leaky_and_max_pool(rng, monkey
     got = engine.run_plan(plan, folded, x, compute_dtype=torch.float32, pallas=pallas)
 
     y = x.permute(0, 3, 1, 2)
-    bare = case == "after-no-conv-pool-token"      # lane-aligned, under the token
+    bare = case.startswith("after-no-conv")
     for op in plan:
         if op[0] == "conv":
             y = bias_leaky(conv(y, w), folded["c"]["b"])
@@ -132,7 +137,7 @@ def test_pools_the_kernel_does_not_fuse_keep_bias_leaky_and_max_pool(rng, monkey
 @pytest.mark.parametrize("name", MODELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_folded_forward_equals_the_walk_with_the_plain_pool(monkeypatch, name, dtype):
-    model, folded = _folded(MODELS[name][0], dtype)
+    model, folded = _folded(MODELS[name], dtype)
     x = _images()
     with torch.no_grad():
         got = model.apply_folded(folded, x)

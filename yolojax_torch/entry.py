@@ -43,17 +43,14 @@ ANCHORS = Path(__file__).resolve().parents[1] / "config" / "anchors" / "voc.tsv"
 ANCHORS_9K = ANCHORS.with_name("yolo9000.tsv")
 
 
-def flagship(num_classes: int | None = None, dtype=torch.bfloat16, backbone: str | None = None,
-             tiny: bool = False):
+def flagship(num_classes: int | None = None, dtype=torch.bfloat16, backbone: str = "darknet"):
     """The flagship YOLOv2 with VOC's anchors and ``pallas = nms fusedpost``,
     on the backbone ``backbone`` names: "darknet" (Darknet-19, the default),
     "tiny" (Tiny-YOLO) or "mobilenet" (MobileNet-YOLOv2, its depthwise
     kernels off as in the reference), with ``num_classes`` classes (20 by
     default); or "yolo9000" (yolo9000.cfg: its 3 anchors and the 9 418
     nodes of the default WordTree, which ``num_classes`` must equal where
-    given).  ``tiny=True`` is the older spelling of ``backbone="tiny"``.
-    Another name raises ``ValueError``."""
-    backbone = backbone or ("tiny" if tiny else "darknet")
+    given).  Another name raises ``ValueError``."""
     classes = {"darknet": Darknet, "tiny": Tiny, "mobilenet": MobileNet, "yolo9000": Yolo9000}
     if backbone not in classes:
         raise ValueError(f"flagship: backbone is one of {sorted(classes)}, not {backbone!r}")

@@ -14,7 +14,9 @@ protocol over plain dictionaries of tensors keyed by layer name:
 Kernel selection reuses the ``[model] pallas`` tokens of the JAX package.  A
 token selects the port's hand-written CUDA kernel where one exists
 (:data:`PORTED_KERNELS`); the others take the plain torch path, as the JAX
-package does off the TPU.
+package does off the TPU.  ``pool`` is accepted and selects nothing: the
+engine runs every 2×2/2 pool of even H and W in the port's pool kernel
+whatever the tokens (``engine.route``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from .blocks import BNConfig
 __all__ = ["ChannelResolver", "LayerDef", "ModelBase", "build_model", "kernel_active",
            "PORTED_KERNELS"]
 
-# ``[model] pallas`` tokens whose TPU kernel has a CUDA counterpart in the port
-PORTED_KERNELS = frozenset({"fusedpost", "nms", "dwsep", "dwconv", "pool", "reorg"})
+# ``[model] pallas`` tokens that select a CUDA kernel of the port
+PORTED_KERNELS = frozenset({"fusedpost", "nms", "dwsep", "dwconv", "reorg"})
 
 
 def kernel_active(which: str, enabled: frozenset) -> bool:

@@ -22,29 +22,30 @@ batch statistics — and routes no kernel, as the JAX engine routes none when
 ``train=True`` (``yolojax/models/engine.py:86-90``: its Pallas kernels have
 no backward).
 
-Kernel routing follows the JAX engine (``yolojax/models/engine.py:86-164``):
-with ``dwsep`` selected, a depthwise 3×3 conv and the 1×1 conv after it run
-as one fused kernel; with ``dwconv`` selected, a depthwise 3×3 conv that did
-not pair runs in the depthwise kernel; with ``pool`` selected, a 2×2/2 pool
-of lane-aligned channels and even H, W runs in the pool kernel; with
-``reorg`` selected and the s2d order configured, the reorg runs in the s2d
-kernel (the darknet order has no kernel).  The kernels take NHWC tensors,
-which are the running tensor's own bytes, so both permutes around a call are
-views.
+The folded walk's route is a value: :func:`route` computes its steps from
+the plan, the tokens and the input's shape, :func:`run_plan` runs them, and
+:func:`launches` counts their kernel launches.  Kernel routing follows the
+JAX engine (``yolojax/models/engine.py:86-164``): with ``dwsep`` selected, a
+depthwise 3×3 conv and the 1×1 conv after it run as one fused kernel; with
+``dwconv`` selected, a depthwise 3×3 conv that did not pair runs in the
+depthwise kernel; with ``reorg`` selected and the s2d order configured, the
+reorg runs in the s2d kernel (the darknet order has no kernel).  The kernels
+take NHWC tensors, which are the running tensor's own bytes, so both
+permutes around a call are views.
 
 Where routing goes further than the JAX engine's:
 
-* a conv on cuDNN followed by a 2×2/2 pool of even H and W, directly or
-  with one ``mark`` between, hands its raw output and bias to the pool
-  kernel, which runs the conv's bias + leaky epilogue (and, for the mark,
-  writes its full-resolution output into the slot), under any ``[model]
-  pallas`` tokens and at any channel count.  The JAX engine routes such a
-  pool only under ``pool`` and at lane-aligned channels
+* every 2×2/2 pool of even H and W runs in the pool kernel, under any
+  ``[model] pallas`` tokens and at any channel count: a conv on cuDNN
+  followed by such a pool, directly or with one ``mark`` between, hands its
+  raw output and bias to the kernel, which runs the conv's bias + leaky
+  epilogue (and, for the mark, writes its full-resolution output into the
+  slot); a pool that follows no conv runs in it bare.  The JAX engine
+  routes a pool only under ``pool`` and at lane-aligned channels
   (``yolojax/models/engine.py:146-148``) and leaves the rest to XLA, which
   fuses the epilogue into ``reduce_window``; the routing differs, the
-  function is the same.  A stride-1 pool or an odd H or W keeps the
-  epilogue kernel and ``max_pool``, and a pool that follows no conv keeps
-  the ``pool`` token and the lane gate;
+  function is the same.  A stride-1 pool or an odd H or W runs
+  ``max_pool``, after the epilogue kernel;
 * a conv followed by a routed reorg hands its raw output and bias to the
   reorg kernel, which runs the epilogue and also writes the ``concat`` right
   after it.  Both fused kernels compute what the unfused ops compute, bit
@@ -71,6 +72,9 @@ the unfolded walk.
 
 from __future__ import annotations
 
+from collections import Counter
+from typing import NamedTuple
+
 import torch
 
 from ..kernels import dwconv as dwconv_k
@@ -84,10 +88,14 @@ from ..utils.trace import span
 from . import LayerDef, kernel_active
 from .blocks import BNConfig, conv, conv_apply, fold_bn, max_pool
 
-__all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights"]
+__all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights",
+           "route", "launches", "Step"]
 
 # the dwsep pair gate's bound on the input height (``engine.py:97``)
 DWSEP_MAX_H = 40
+# the span of each step of the folded walk but mark and load, which record none
+_SPANS = {op: f"yolojax_torch.plan.{op}"
+          for op in ("conv", "epilogue", "pool", "reorg", "concat", "dwconv", "dwsep")}
 
 
 def plan_convs(plan) -> list[LayerDef]:
@@ -95,27 +103,48 @@ def plan_convs(plan) -> list[LayerDef]:
     return [op[1] for op in plan if op[0] == "conv"]
 
 
-def resolve_in_channels(plan, in_ch: int) -> None:
-    """Walk the plan symbolically to fill each LayerDef's ``in_ch`` (pruned
-    widths propagate: downstream in_ch derives from upstream out_ch)."""
-    ch = in_ch
-    slots: dict[str, int] = {}
+def _walk(plan, channels: int, height: int, width: int) -> list[tuple[int, int, int]]:
+    """The running tensor's (C, H, W) before each op of the plan and after
+    the last, walked symbolically: a conv gives its ``out_ch`` and
+    ``(h - 1) // stride + 1``; a VALID pool ``(h - size) // stride + 1`` (``h
+    // 2`` at 2×2/2) and a SAME stride-1 pool ``h``; a reorg ``C·s²`` and ``h
+    // s``; a concat adds the slot's channels; ``mark`` and ``load`` save and
+    restore the slots."""
+    shape, slots, shapes = (channels, height, width), {}, []
     for op in plan:
-        kind = op[0]
+        shapes.append(shape)
+        kind, (c, h, w) = op[0], shape
         if kind == "conv":
-            d = op[1]
-            d.in_ch = ch
-            if d.groups == -1:  # depthwise marker
-                d.groups = ch
-            ch = d.out_ch
+            s = op[1].stride
+            shape = (op[1].out_ch, (h - 1) // s + 1, (w - 1) // s + 1)
+        elif kind == "pool":
+            size, s = op[1], op[2]
+            if s != 1:
+                shape = (c, (h - size) // s + 1, (w - size) // s + 1)
         elif kind == "mark":
-            slots[op[1]] = ch
+            slots[op[1]] = shape
         elif kind == "load":
-            ch = slots[op[1]]
+            shape = slots[op[1]]
         elif kind == "reorg":
-            ch *= op[1] * op[1]
+            s = op[1]
+            shape = (c * s * s, h // s, w // s)
         elif kind == "concat":
-            ch += slots[op[1]]
+            shape = (c + slots[op[1]][0], h, w)
+        else:
+            raise ValueError(f"unknown plan op {kind!r}")
+    shapes.append(shape)
+    return shapes
+
+
+def resolve_in_channels(plan, in_ch: int) -> None:
+    """Fill each LayerDef's ``in_ch`` from the symbolic walk (pruned widths
+    propagate: downstream in_ch derives from upstream out_ch)."""
+    for op, (c, _, _) in zip(plan, _walk(plan, in_ch, 0, 0)):
+        if op[0] == "conv":
+            d = op[1]
+            d.in_ch = c
+            if d.groups == -1:  # depthwise marker
+                d.groups = c
 
 
 def _dw_routable(d: LayerDef) -> bool:
@@ -146,29 +175,101 @@ def _dwsep_pair(plan, i, height: int, dtype) -> LayerDef | None:
     return _pointwise_after(plan, i)
 
 
-def _pool_fusable(y, size: int, stride: int) -> bool:
-    """A pool that takes the raw output ``y`` of the conv before it, with its
-    epilogue, at any channel count: 2×2/2, H and W even.  ``y`` is
-    NCHW-shaped, so H is ``y.shape[2]`` and W ``y.shape[3]``."""
-    return size == 2 and stride == 2 and y.shape[2] % 2 == 0 and y.shape[3] % 2 == 0
+def _pool_kernel_takes(size: int, stride: int, height: int, width: int) -> bool:
+    """A pool that runs in ``maxpool2x2``, at any channel count: 2×2/2 over
+    an even H and W."""
+    return size == 2 and stride == 2 and height % 2 == 0 and width % 2 == 0
 
 
-def _pool_routable(x, size: int, stride: int) -> bool:
-    """A pool after no conv that the pool kernel takes (``engine.py:146-148``):
-    a fusable one whose channels are a multiple of 128, C being ``x.shape[1]``
-    (the JAX engine reads ``x.shape[-1]``, ``x.shape[1]`` and ``x.shape[2]``
-    of an NHWC array)."""
-    return _pool_fusable(x, size, stride) and x.shape[1] % 128 == 0
+class Step(NamedTuple):
+    """One step of the folded walk (:func:`route`).
+
+    ``op`` names its span, ``yolojax_torch.plan.<op>`` (``mark`` and ``load``
+    record none); ``kernel`` the hand-written kernel it launches, None where
+    it runs on cuDNN or in torch or launches nothing; ``layer`` the conv it
+    runs or whose raw output and bias it takes (its span's ``layer=``), None
+    for an op of its own; ``shape`` the (C, H, W) of the tensor it takes (the
+    conv's raw output for an epilogue or a fused pool or reorg); ``key`` the
+    slot it writes or reads (a fused pool's full output, a fused reorg's
+    concat); ``arg`` a pool's (size, stride), a reorg's stride, a dwsep
+    pair's 1×1 conv."""
+
+    op: str
+    kernel: str | None = None
+    layer: LayerDef | None = None
+    shape: tuple = ()
+    key: str | None = None
+    arg: object = None
 
 
-def _after_conv(plan, i):
-    """What follows the conv ``plan[i]``, for the kernels that take its
-    epilogue: (the key of a ``mark`` right after it or None, the index of the
-    next other op, that op or None)."""
-    j, key = i + 1, None
-    if j < len(plan) and plan[j][0] == "mark":
-        key, j = plan[j][1], j + 1
-    return key, j, plan[j] if j < len(plan) else None
+def route(plan, *, pallas: frozenset, reorg_order: str, dtype, channels: int, height: int,
+          width: int) -> list[Step]:
+    """The folded walk's steps in order on a (B, ``height``, ``width``,
+    ``channels``) input in ``dtype``, under the ``[model] pallas`` tokens
+    ``pallas``: what :func:`run_plan` runs, and the launches of a call
+    (:func:`launches`).
+
+    * A depthwise conv pairs with the 1×1 conv after it in ``dwsep`` under
+      that token (:func:`_dwsep_pair`: input height ``≤ DWSEP_MAX_H``, the
+      bf16 channel cap); else it runs in ``dwconv3x3`` under ``dwconv`` where
+      its channels are lane-aligned.
+    * Any other conv runs on cuDNN, then hands its raw output and bias to the
+      kernel that takes its epilogue: ``maxpool2x2`` where a 2×2/2 pool of
+      even H and W follows, directly or through one ``mark`` (whose slot
+      gets the full output); ``reorg_s2d`` where a reorg follows under
+      ``reorg`` in s2d order (with the ``concat`` right after it); else
+      ``bias_leaky_nhwc``.
+    * A pool that follows no conv runs bare in ``maxpool2x2`` where it is
+      2×2/2 over an even H and W, in ``max_pool`` otherwise; a reorg in
+      ``reorg_s2d`` under ``reorg`` in s2d order, in torch otherwise.
+    """
+    use_dw_k = kernel_active("dwconv", pallas)
+    use_dwsep = kernel_active("dwsep", pallas)
+    use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
+    shapes = _walk(plan, channels, height, width)
+    steps, i, end = [], 0, len(plan)
+    while i < end:
+        op, shape = plan[i], shapes[i]
+        kind, i = op[0], i + 1
+        if kind == "conv":
+            d = op[1]
+            n = _dwsep_pair(plan, i - 1, shape[1], dtype) if use_dwsep else None
+            if n is not None:
+                steps.append(Step("dwsep", "dwsep", d, shape, arg=n))
+                i += 1
+                continue
+            if use_dw_k and _dw_routable(d):
+                steps.append(Step("dwconv", "dwconv3x3", d, shape))
+                continue
+            steps.append(Step("conv", None, d, shape))
+            y = shapes[i]
+            key = plan[i][1] if i < end and plan[i][0] == "mark" else None
+            j = i + (key is not None)
+            nxt = plan[j] if j < end else ("end",)
+            if nxt[0] == "pool" and _pool_kernel_takes(nxt[1], nxt[2], y[1], y[2]):
+                steps.append(Step("pool", "maxpool2x2", d, y, key=key))
+                i = j + 1
+            elif use_reorg_k and key is None and nxt[0] == "reorg":
+                cat = plan[j + 1][1] if j + 1 < end and plan[j + 1][0] == "concat" else None
+                steps.append(Step("reorg", "reorg_s2d", d, y, key=cat, arg=nxt[1]))
+                i = j + 1 + (cat is not None)
+            else:
+                steps.append(Step("epilogue", "bias_leaky_nhwc", d, y))
+        elif kind == "pool":
+            takes = _pool_kernel_takes(op[1], op[2], shape[1], shape[2])
+            steps.append(Step("pool", "maxpool2x2" if takes else None, shape=shape, arg=op[1:]))
+        elif kind == "reorg":
+            steps.append(Step("reorg", "reorg_s2d" if use_reorg_k else None, shape=shape,
+                              arg=op[1]))
+        else:   # mark, load, concat
+            steps.append(Step(kind, shape=shape, key=op[1]))
+    return steps
+
+
+def launches(steps) -> dict[str, int]:
+    """The launches of each hand-written kernel over ``steps`` (a
+    :func:`route`), by the kernel's name."""
+    return dict(Counter(s.kernel for s in steps if s.kernel))
 
 
 def _launchers():
@@ -191,7 +292,8 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
     dtype.  The input is cast to the compute dtype before the first conv.
 
     Without ``state``, ``params`` are folded ``{w, b}`` params and the
-    output is returned; ``pallas`` holds the ``[model] pallas`` tokens, and a
+    output is returned; the walk runs the steps of :func:`route` at the
+    input's shape, ``pallas`` holds the ``[model] pallas`` tokens, and a
     routed layer needs the weight layouts of :func:`add_kernel_weights` in
     them.  With ``state`` (BN running stats), ``params`` are the unfolded
     params and the result is ``(output, new_state)``; ``train`` selects
@@ -204,81 +306,53 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
     if train:
         raise ValueError("a train-mode forward needs the BN state (run_plan(..., state=...))")
     folded = params
-    use_dw_k = kernel_active("dwconv", pallas)
-    use_dwsep = kernel_active("dwsep", pallas)
-    use_pool_k = kernel_active("pool", pallas)
-    use_reorg_k = kernel_active("reorg", pallas) and reorg_order == "s2d"
+    steps = route(plan, pallas=pallas, reorg_order=reorg_order, dtype=compute_dtype,
+                  channels=x.shape[3], height=x.shape[1], width=x.shape[2])
     dwconv3x3, dwsep, maxpool2x2, reorg_s2d, bias_leaky_nhwc = _launchers()
     slots = {}
     with span("yolojax_torch.plan.layout"):
         x = x.to(compute_dtype).permute(0, 3, 1, 2)
-    resume = 0   # ops before this index ran fused into an earlier one
-    for i, op in enumerate(plan):
-        if i < resume:
+    for s in steps:
+        op, d = s.op, s.layer
+        if op == "mark":
+            slots[s.key] = x
             continue
-        kind = op[0]
-        if kind == "conv":
-            d = op[1]
-            p = folded[d.name]
-            # x is NCHW-shaped, so its height is x.shape[2] (the JAX engine
-            # reads x.shape[1] of an NHWC array)
-            n = _dwsep_pair(plan, i, x.shape[2], x.dtype) if use_dwsep else None
-            if n is not None:
-                q = folded[n.name]
-                with span("yolojax_torch.plan.dwsep", layer=d.name):
-                    x = dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
-                              d.stride, q["w_oi"]).permute(0, 3, 1, 2)
-                resume = i + 2
-                continue
-            if use_dw_k and _dw_routable(d):
-                with span("yolojax_torch.plan.dwconv", layer=d.name):
-                    x = dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
-                                  d.act).permute(0, 3, 1, 2)
-                continue
-            with span("yolojax_torch.plan.conv", layer=d.name):
+        if op == "load":
+            x = slots[s.key]
+            continue
+        p = None if d is None else folded[d.name]
+        with span(_SPANS[op]) if d is None else span(_SPANS[op], layer=d.name):
+            # the kernels take NHWC: the running tensor's own bytes, permuted views
+            if op == "conv":
                 y = conv(x, p["w"], stride=d.stride, groups=d.groups)
-            key, j, nxt = _after_conv(plan, i)
-            if nxt is not None and nxt[0] == "pool" and _pool_fusable(y, nxt[1], nxt[2]):
-                with span("yolojax_torch.plan.pool", layer=d.name):
-                    out = maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, key is not None)
-                if key is not None:
+            elif op == "epilogue":
+                x = bias_leaky_nhwc(y.permute(0, 2, 3, 1), p["b"], d.act).permute(0, 3, 1, 2)
+            elif op == "pool" and d is not None:
+                out = maxpool2x2(y.permute(0, 2, 3, 1), p["b"], d.act, s.key is not None)
+                if s.key is not None:
                     out, full = out
-                    slots[key] = full.permute(0, 3, 1, 2)
+                    slots[s.key] = full.permute(0, 3, 1, 2)
                 x = out.permute(0, 3, 1, 2)
-                resume = j + 1
-            elif use_reorg_k and key is None and nxt is not None and nxt[0] == "reorg":
-                cat = plan[j + 1] if j + 1 < len(plan) and plan[j + 1][0] == "concat" else None
-                tail = None if cat is None else slots[cat[1]].permute(0, 2, 3, 1)
-                with span("yolojax_torch.plan.reorg", layer=d.name):
-                    x = reorg_s2d(y.permute(0, 2, 3, 1), nxt[1], tail, p["b"],
-                                  d.act).permute(0, 3, 1, 2)
-                resume = j + 1 if cat is None else j + 2
-            else:
-                with span("yolojax_torch.plan.epilogue", layer=d.name):
-                    x = bias_leaky_nhwc(y.permute(0, 2, 3, 1), p["b"],
-                                        d.act).permute(0, 3, 1, 2)
-        elif kind == "pool":
-            with span("yolojax_torch.plan.pool"):
-                if use_pool_k and _pool_routable(x, op[1], op[2]):
-                    x = maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-                else:
-                    x = max_pool(x, op[1], op[2])
-        elif kind == "mark":
-            slots[op[1]] = x
-        elif kind == "load":
-            x = slots[op[1]]
-        elif kind == "reorg":
-            with span("yolojax_torch.plan.reorg"):
-                if use_reorg_k:
-                    x = reorg_s2d(x.permute(0, 2, 3, 1), op[1]).permute(0, 3, 1, 2)
-                else:
-                    x = reorg(x.permute(0, 2, 3, 1), op[1], reorg_order).permute(0, 3, 1, 2)
-        elif kind == "concat":
-            with span("yolojax_torch.plan.concat"):
-                x = torch.cat([x, slots[op[1]]], dim=1).contiguous(
+            elif op == "pool":
+                x = (maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2) if s.kernel
+                     else max_pool(x, *s.arg))
+            elif op == "reorg" and d is not None:
+                tail = None if s.key is None else slots[s.key].permute(0, 2, 3, 1)
+                x = reorg_s2d(y.permute(0, 2, 3, 1), s.arg, tail, p["b"],
+                              d.act).permute(0, 3, 1, 2)
+            elif op == "reorg":
+                x = (reorg_s2d(x.permute(0, 2, 3, 1), s.arg) if s.kernel
+                     else reorg(x.permute(0, 2, 3, 1), s.arg, reorg_order)).permute(0, 3, 1, 2)
+            elif op == "concat":
+                x = torch.cat([x, slots[s.key]], dim=1).contiguous(
                     memory_format=torch.channels_last)
-        else:
-            raise ValueError(f"unknown plan op {kind!r}")
+            elif op == "dwconv":
+                x = dwconv3x3(x.permute(0, 2, 3, 1), p["taps"], p["b"], d.stride,
+                              d.act).permute(0, 3, 1, 2)
+            else:   # dwsep
+                q = folded[s.arg.name]
+                x = dwsep(x.permute(0, 2, 3, 1), p["taps"], p["b"], q["w_io"], q["b"],
+                          d.stride, q["w_oi"]).permute(0, 3, 1, 2)
     with span("yolojax_torch.plan.layout"):
         return x.permute(0, 2, 3, 1).contiguous()
 

@@ -22,8 +22,13 @@ from ..ops.decode import Detections, decode, decode_flat
 from ..ops.postprocess import PostProcessed, postprocess
 from ..utils.trace import span
 from . import kernel_active
+from .engine import launches, route
 
-__all__ = ["Inference", "to_host"]
+__all__ = ["Inference", "to_host", "POST_LAUNCHES"]
+
+# the kernel launches of one call of each post step (the wrappers count them)
+POST_LAUNCHES = {"tree": {"tree_decode": 2}, "fused": {"postprocess_fused": 1},
+                 "nms": {"nms_select": 1}, "plain": {}}
 
 
 class Inference:
@@ -49,22 +54,38 @@ class Inference:
         raw = self.model.apply_folded(folded, images)
         return decode(raw, self._anchors(raw.device))
 
+    def post_step(self) -> str:
+        """The post step :meth:`detect_fn` runs: "tree" for a model with a
+        WordTree head (``model.tree``) whatever the tokens say; else "fused"
+        with ``fusedpost`` selected (the default config), which takes
+        precedence over ``nms``; "nms" with ``nms`` alone; "plain" with
+        neither."""
+        if getattr(self.model, "tree", None) is not None:
+            return "tree"
+        if kernel_active("fusedpost", self.model.pallas):
+            return "fused"
+        return "nms" if kernel_active("nms", self.model.pallas) else "plain"
+
+    def launches(self, size: int, post: bool = True) -> dict[str, int]:
+        """The hand-written kernels' launches of one :meth:`detect_fn` call on
+        ``size``² images, by kernel name: the forward's, from the engine's
+        route (``engine.route``), and with ``post`` the post step's
+        (:data:`POST_LAUNCHES`)."""
+        m = self.model
+        steps = route(m.plan, pallas=m.pallas, reorg_order=m.reorg_order, dtype=m.dtype,
+                      channels=3, height=size, width=size)
+        return {**launches(steps), **(POST_LAUNCHES[self.post_step()] if post else {})}
+
     def detect_fn(self, threshold: float, overlap: float, topk: int):
         """(folded, images) → PostProcessed, or TreePostProcessed for a
-        model with a WordTree head (``model.tree``).
-
-        A tree head's raw output goes to the tree decode + per-node NMS
-        (``kernels/tree.py``, under the span ``yolojax_torch.post.tree``)
-        whatever the tokens say.  Else, with ``fusedpost`` selected (the
-        default config) the raw head goes to
-        the fused decode+NMS kernel, which takes precedence over ``nms``; with
-        ``nms`` alone, decode → the batched NMS kernel
-        (``kernels/nms.py::postprocess_nms``); with neither, decode → plain
-        per-class NMS.
+        model with a WordTree head, after the post step of
+        :meth:`post_step`: the tree decode + per-node NMS (``kernels/tree.py``,
+        under the span ``yolojax_torch.post.tree``); the fused decode+NMS
+        kernel; decode → the batched NMS kernel
+        (``kernels/nms.py::postprocess_nms``); or decode → plain per-class
+        NMS.
         """
-        use_fused = kernel_active("fusedpost", self.model.pallas)
-        use_nms = kernel_active("nms", self.model.pallas)
-        tree = getattr(self.model, "tree", None)
+        post = self.post_step()
 
         @torch.inference_mode()
         def run(folded, images) -> PostProcessed:
@@ -73,19 +94,19 @@ class Inference:
                     raw = self.model.apply_folded(folded, images)
                 with span("yolojax_torch.post"):
                     anchors = self._anchors(raw.device)
-                    if tree is not None:
+                    if post == "tree":
                         from ..kernels.tree import tree_decode
 
                         b, h, w, _ = raw.shape
                         with span("yolojax_torch.post.tree", boxes=b * h * w * len(anchors)):
-                            return tree_decode(raw, anchors, tree, threshold, overlap, topk,
-                                               self.model.hier_thresh)
-                    if use_fused:
+                            return tree_decode(raw, anchors, self.model.tree, threshold, overlap,
+                                               topk, self.model.hier_thresh)
+                    if post == "fused":
                         from ..kernels.postprocess_fused import postprocess_fused
 
                         return postprocess_fused(raw, anchors, threshold, overlap, topk)
                     det = decode(raw, anchors)
-                    if use_nms:
+                    if post == "nms":
                         from ..kernels.nms import postprocess_nms
 
                         return postprocess_nms(det, threshold, overlap, topk)

@@ -3,7 +3,9 @@ kernels (``gate_fused_times``, ``c80_fusedpost``).
 
 The bound of a call is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, an H100 SXM's HBM3 rate and float32 peak.  A
+operations over 67 TFLOP/s, an H100 SXM's HBM3 rate and float32 peak
+(``chip_smoke.py`` reads these peaks, and the bf16 tensor-core one, from
+here).  A
 YOLOv2 head's decode costs ~3 operations per class score and 20 per
 candidate, and each greedy pick an argmax and an IoU, ~16 per candidate
 (:func:`decode_nms_ops`).
@@ -16,7 +18,8 @@ import time
 import numpy as np
 import torch
 
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# an H100 SXM's published peaks: HBM3 bytes/s, f32 flop/s, dense bf16 tensor-core flop/s
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 
 def event_ms(fn, reps: int, warmup: int = 3) -> list[float]:
