@@ -112,10 +112,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
    epilogue, ``maxpool2x2_plain`` for the conv → pool pairs), and each
    routed pool's device µs at batch 128 in a CUDA graph of 20 back-to-back
    calls beside its bytes bound; the one-pass epilogue at c1's and c20's
-   shapes against
+   shapes and on YOLO9000's padded head (the first 28 269 of 28 272
+   channels at 17×17) against
    ``bias_leaky`` (six torch ops; the outputs bit-identical), and a call's
    device µs in a CUDA graph of back-to-back calls, which at batch 128 must
-   reach 80 % (c1) and 65 % (c20) of 3.35 TB/s;
+   reach 80 % (c1), 75 % (the head) and 65 % (c20) of 3.35 TB/s;
 10. train path — the train CLI's loop (``cli.train.Train``) on 64 seeded
    in-memory images of 200-500 px (filled rectangles; an injected
    ``imread``, as the chip machine has no cv2) through the record cache,
@@ -290,7 +291,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
    (``tests/test_torch_cuda_tree.py``'s tolerance); the walk counters equal
    to the plain walk's; the call's times in turns with the plain version,
    its device time from a CUDA graph of calls and its bytes bound (the head
-   read once, the picks written).  Prints ``{"tree": {...}}``.
+   read once, the picks written); (c) the 1 024 → 28 269 head conv alone at
+   B=128 (cuDNN, ``channels_last`` bf16) at its own width and at the padded
+   width 28 272 the engine runs: the kernels cuDNN launches, device ms in a
+   CUDA graph of calls, and its FLOPs bound.  Prints ``{"tree": {...}}``.
 
 Prints a ``{"kernels": [...]}`` JSON line (per kernel: launches on the main
 paths, the eval path's two runs, the deploy phase's detect, export replays
@@ -346,11 +350,14 @@ S2D_TOKENS = "nms pool reorg"
 TINY_TOKENS = "nms fusedpost pool"
 REORG_SHAPE = (26, 64)      # c21's output at 416: (B, 26, 26, 64) -> (B, 13, 13, 256)
 REORG_TAIL = 1024           # the passthrough's top, (B, 13, 13, 1024), concatenated after it
-# the one-pass epilogue's timed conv outputs at 416, (H, C), and the share of the
-# bytes bound's rate its device time must reach at batch 128: Darknet-19's largest
-# (c1) and one of its deepest (c20)
-EPILOGUE_SHAPES = {"c1": (416, 32), "c20": (13, 1024)}
-EPILOGUE_TARGETS = {"c1": 0.80, "c20": 0.65}
+# the one-pass epilogue's timed conv outputs, (H, C, the padded width or None), and
+# the share of the bytes bound's rate its device time must reach at batch 128:
+# Darknet-19's largest (c1) and one of its deepest (c20) at 416, and YOLO9000's
+# head at 544, the first 28 269 channels of its conv's 28 272 (engine.padded_width;
+# 76.2-85.9 % in three smoke runs on H100s at 700 W, 86.4 % into one preallocated output)
+EPILOGUE_SHAPES = {"c1": (416, 32, None), "c20": (13, 1024, None),
+                   "head9k": (17, 28269, 28272)}
+EPILOGUE_TARGETS = {"c1": 0.80, "c20": 0.65, "head9k": 0.75}
 KERNELS = ("postprocess_fused", "dwconv3x3", "dwsep", "nms_select", "maxpool2x2", "reorg_s2d",
            "bias_leaky_nhwc", "tree_decode")
 
@@ -1415,8 +1422,9 @@ def epilogue_times(card: str) -> tuple[dict, float]:
     g = torch.Generator(device="cuda").manual_seed(11)
     result, short, err = {}, [], 0.0
     for b in TIME_BATCHES:
-        for layer, (h, c) in EPILOGUE_SHAPES.items():
-            x = torch.randn((b, h, h, c), generator=g, device="cuda").to(torch.bfloat16)
+        for layer, (h, c, padded) in EPILOGUE_SHAPES.items():
+            x = torch.randn((b, h, h, padded or c), generator=g, device="cuda").to(
+                torch.bfloat16)[..., :c]
             bias = torch.randn(c, generator=g, device="cuda") * 0.5
             got, want = bias_leaky_nhwc(x, bias), bias_leaky_nhwc_plain(x, bias)
             err = max(err, float((got.float() - want.float()).abs().max()))
@@ -1434,7 +1442,8 @@ def epilogue_times(card: str) -> tuple[dict, float]:
             result[(layer, b)] = {"ms": t_kernel, "device_us": device_us, "plain_ms": t_plain,
                                   "library_ms": None, "bound_ms": bound.total,
                                   "bound_by": bound.by, "share": share}
-            log(f"[time] {card} | bias_leaky_nhwc {layer} {tuple(x.shape)} bf16: "
+            of = f" (of {padded} channels)" if padded else ""
+            log(f"[time] {card} | bias_leaky_nhwc {layer} {tuple(x.shape)} bf16{of}: "
                 "bit-identical to bias_leaky; kernel "
                 f"{t_kernel:.4f} ms, device {device_us:.1f} us a call in a graph of {calls} = "
                 f"{moved / 1e3 / device_us:.0f} GB/s, {100 * share:.1f} % of its bound "
@@ -4269,6 +4278,7 @@ TREE_SCORE_RTOL = 2.4e-7
 # objectness bias that leaves scores over THRESHOLD
 YOLO9000_BATCHES = (8, 8, 128)
 YOLO9000_CLASS_GAIN, YOLO9000_OBJECTNESS = 8.0, -2.5
+HEAD_CONV_BATCH = 128       # the bench cell's batch, for the head conv's times
 
 
 def tree_head(b: int, seed: int) -> torch.Tensor:
@@ -4427,9 +4437,52 @@ def tree_phase(card: str) -> tuple[dict, float]:
     return result, err
 
 
+def head_conv_times(card: str) -> dict:
+    """Phase 18 (c): YOLO9000's 1×1 head conv alone (``blocks.conv``, i.e.
+    cuDNN) on a seeded (HEAD_CONV_BATCH, 1024, 17, 17) ``channels_last``
+    bf16 input, at its own width and at the padded width the engine runs it
+    at (``engine.padded_width``): the kernels cuDNN launches (a CUDA graph
+    capture), a call's device ms in a CUDA graph of calls, and the bound
+    (2 · pixels · 1024 · width FLOPs at the bf16 peak, or the bytes).  The
+    two outputs' first 28 269 channels are two kernels' sums of the same
+    products: their largest difference is printed, not held to 0."""
+    from yolojax_torch.models import LayerDef
+    from yolojax_torch.models.blocks import conv
+    from yolojax_torch.models.engine import padded_width
+
+    c = TREE_ANCHORS * (5 + TREE_CLASSES)
+    pad = padded_width(LayerDef("out", c, 1, in_ch=1024))
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((HEAD_CONV_BATCH, 1024, TREE_GRID, TREE_GRID), generator=g,
+                    device="cuda").to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((pad, 1024, 1, 1), generator=g, device="cuda") * 0.03).to(torch.bfloat16)
+    w[c:] = 0
+    result, outs = {}, {}
+    for width in (c, pad):
+        wc = w[:width].contiguous(memory_format=torch.channels_last)
+        fn = lambda: conv(x, wc)
+        outs[width] = fn()[:, :c]
+        kernels = [k for k in captured_work(fn) if not k.startswith("<")]
+        ms = graph_us(fn, 4) / 1e3
+        bound = Bound().add(nbytes(x, wc) + x.numel() // 1024 * width * 2,
+                            {"bf16 tensor": 2 * x.numel() * width})
+        result[width] = {"kernels": kernels, "device_ms": ms, "bound_ms": bound.total,
+                         "bound_by": bound.by, "of_bound": bound.total / ms,
+                         "tflops": 2 * x.numel() * width / ms / 1e9}
+        log(f"[head conv] {card} | (B={HEAD_CONV_BATCH}, 17, 17, 1024) -> {width} bf16: "
+            f"{kernels}, device {ms:.4f} ms a call in a graph of 4, "
+            f"{result[width]['tflops']:.1f} TFLOP/s, {100 * result[width]['of_bound']:.1f} % of "
+            f"its bound {bound.total:.4f} ms ({bound.by})")
+    diff = float((outs[c].float() - outs[pad].float()).abs().max())
+    result["max_abs_diff"] = diff
+    log(f"[head conv] the padded conv's first {c} channels against the unpadded conv's: "
+        f"max abs diff {diff:.4g}")
+    return result
+
+
 def tree_paths(card: str) -> tuple[dict, dict, float]:
-    """Phase 18: (a) then (b).  Returns (the main path's launches, numbers,
-    largest abs score error)."""
+    """Phase 18: (a), (b), then (c).  Returns (the main path's launches,
+    numbers, largest abs score error)."""
     from yolojax_torch.kernels import tree as tk
 
     t0 = time.perf_counter()
@@ -4438,6 +4491,7 @@ def tree_paths(card: str) -> tuple[dict, dict, float]:
     launches, path, path_err = yolo9000_path()
     result, err = tree_phase(card)
     result["path"] = path
+    result["head_conv"] = head_conv_times(card)
     result["seconds"] = time.perf_counter() - t0
     log(f"[tree] phase 18 took {result['seconds']:.1f} s")
     return launches, result, max(err, path_err)

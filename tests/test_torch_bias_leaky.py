@@ -3,7 +3,9 @@
 On the CPU the wrapper runs its plain version, ``blocks.bias_leaky`` on the
 NCHW view; it is held bit for bit to ``bias_leaky`` and to the JAX engine's
 folded epilogue ``_post_conv`` (one f32 add, one f32 multiply, one rounding
-on both sides).  The epilogues each path's route sends to the wrapper are
+on both sides), and on the first C channels of a padded tensor (the raw
+output of a conv the engine runs at a padded width) to itself on the same
+values made contiguous.  The epilogues each path's route sends to the wrapper are
 counted in ``tests/test_torch_route.py``.  On the card the kernel is held to
 its plain version in ``tests/test_torch_cuda_bias_leaky.py``.
 """
@@ -50,6 +52,47 @@ def test_cpu_path_is_bias_leaky_and_the_jax_epilogue_bit_for_bit(rng, c, act, dt
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(jy, np.float32))
 
 
+@pytest.mark.parametrize("c,padded", [(125, 128), (13, 16), (3, 8), (28269, 28272)])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_on_a_padded_view_is_itself_on_the_unpadded_tensor(rng, c, padded, act,
+                                                                         dtype):
+    """A (B, H, W, padded) tensor's first c channels, as the engine hands a
+    padded conv's raw output over: the wrapper and its plain version give
+    the contiguous result of the same values made contiguous, bit for bit."""
+    tdtype = DTYPES[dtype][0]
+    b, h, w = (1, 2, 3) if c > 1024 else (2, 5, 3)
+    x = _special(rng, (b, h, w, padded), tdtype)[..., :c]
+    assert not x.is_contiguous() and ek.pixel_stride(x) == padded
+    bias = torch.from_numpy(rng.normal(0, 0.5, c).astype(np.float32))
+    want = ek.bias_leaky_nhwc_plain(x.contiguous(), bias, act)
+    bits = torch.int32 if dtype == "float32" else torch.int16
+    for fn in (ek.bias_leaky_nhwc_plain, ek.bias_leaky_nhwc):
+        got = fn(x, bias, act)
+        assert got.shape == (b, h, w, c) and got.dtype == tdtype and got.is_contiguous()
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_pixel_stride_reads_contiguous_and_padded_layouts_only():
+    base = torch.zeros(2, 3, 4, 16)
+    assert ek.pixel_stride(base) == 16
+    assert ek.pixel_stride(base[..., :13]) == 16
+    assert ek.pixel_stride(base[:1, :1, :1, :5]) == 5      # one pixel: contiguous
+    assert ek.pixel_stride(base[:, :1, :1, :5]) == 16 * 12  # one pixel an image
+    # the engine's view: a channels_last NCHW conv output, permuted, its first C channels
+    nchw = torch.zeros(2, 128, 3, 1).contiguous(memory_format=torch.channels_last)
+    assert ek.pixel_stride(nchw.permute(0, 2, 3, 1)[..., :125]) == 128
+    assert ek.pixel_stride(torch.zeros(2, 3, 4, 10)[..., :7]) is None    # 10: no multiple of 8
+    assert ek.pixel_stride(base[:, :, ::2, :13]) == 32                     # every other pixel
+    assert ek.pixel_stride(base[:, :, :2, :13]) is None                   # a row's end skipped
+    assert ek.pixel_stride(base[:, :2, :, :13]) is None                   # an image's rows
+    assert ek.pixel_stride(base[..., 1:14]) == 16                          # offset start
+    assert ek.pixel_stride(base.permute(0, 3, 1, 2)) is None
+    ek._check(base[..., :13], torch.zeros(13))
+    with pytest.raises(ValueError, match="contiguous as NHWC"):
+        ek._check(torch.zeros(2, 3, 4, 10)[..., :7], torch.zeros(7))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(1, 2, 2, 8)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -67,9 +110,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ek._check(torch.empty(2**16, 2**15, 1, 0), torch.zeros(0))
 
 
+@pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_custom_op_fake_gives_the_wrappers_shape_and_dtype(dtype):
-    x, bias = torch.zeros(2, 5, 3, 125, dtype=dtype), torch.zeros(125)
+def test_custom_op_fake_gives_the_wrappers_shape_and_dtype(dtype, padded):
+    x, bias = torch.zeros(2, 5, 3, 128 if padded else 125, dtype=dtype), torch.zeros(125)
+    x = x[..., :125]
     want = ek.bias_leaky_nhwc(x, bias, True)
     with FakeTensorMode() as mode:
         fake = ops.bias_leaky_nhwc(mode.from_tensor(x), mode.from_tensor(bias), True)

@@ -1,6 +1,7 @@
 """The port's one-pass bias + leaky epilogue kernel (``csrc/bias_leaky.cu``)
-on the card, against its plain version, and the bench's folded forwards
-that route every unfused epilogue through it.
+on the card, against its plain version, on contiguous inputs and on the
+first C channels of a padded tensor (a padded conv's raw output), and the
+bench's folded forwards that route every unfused epilogue through it.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU interpret mode.  The file imports torch, numpy, pytest and
@@ -116,6 +117,40 @@ def test_cuda_bias_leaky_of_a_misaligned_view_takes_the_one_lane_kernel(cuda_dev
     _check(_special((2, 13, 13, 1024), DTYPES[dtype], seed=8), bias, True)
 
 
+# (B, H, W, padded width, C): YOLO9000's head at 544 and the VOC head at 416
+# (the engine's padded convs), and small odd widths, one of them under a pack
+PADDED = [(8, 17, 17, 28272, 28269), (8, 13, 13, 128, 125), (128, 13, 13, 128, 125),
+          (3, 5, 7, 16, 13), (2, 3, 3, 8, 3), (2, 4, 4, 24, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PADDED)
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bias_leaky_on_a_padded_view_is_bit_identical(cuda_device, shape, act, dtype):
+    """The first C channels of a (B, H, W, padded) tensor: the padded
+    instantiation's result equals the plain version's and the kernel's own
+    on the same values made contiguous (the unpadded launch), bit for bit."""
+    b, h, w, padded, c = shape
+    x = _special((b, h, w, padded), DTYPES[dtype], seed=padded + c)[..., :c]
+    assert ek.pixel_stride(x) == padded
+    bias = _bias(c, seed=c)
+    _check(x, bias, act)
+    torch.cuda.synchronize()
+    _assert_bits(ek.bias_leaky_nhwc(x, bias, act), ek.bias_leaky_nhwc(x.contiguous(), bias, act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bias_leaky_of_a_misaligned_padded_view_takes_values_one_at_a_time(cuda_device,
+                                                                               dtype):
+    base = _special((2 * 17 * 17 * 136 + 1,), DTYPES[dtype], seed=9)
+    x = base[1:].view(2, 17, 17, 136)[..., :131]     # x one value past a 16-byte boundary
+    _check(x, _bias(131, seed=10), False)
+    bias = _bias(132, seed=11)[1:]                    # a misaligned bias, aligned x
+    _check(_special((2, 17, 17, 136), DTYPES[dtype], seed=12)[..., :131], bias, True)
+
+
 @pytest.mark.cuda
 def test_cuda_bias_leaky_refuses_what_it_does_not_take(cuda_device):
     x = torch.zeros(2, 4, 4, 8, device="cuda")
@@ -123,6 +158,9 @@ def test_cuda_bias_leaky_refuses_what_it_does_not_take(cuda_device):
         ek.bias_leaky_nhwc(x.double(), torch.zeros(8, device="cuda"))
     with pytest.raises(ValueError):
         ek.bias_leaky_nhwc(x.permute(0, 3, 1, 2), torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError):                 # pixels 12 values apart: no multiple of 8
+        ek.bias_leaky_nhwc(torch.zeros(2, 4, 4, 12, device="cuda")[..., :7],
+                           torch.zeros(7, device="cuda"))
     with pytest.raises(ValueError):
         ek.bias_leaky_nhwc(x, torch.zeros(8))                      # bias on the CPU
     with pytest.raises(ValueError):

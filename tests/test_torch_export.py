@@ -132,10 +132,12 @@ def _op_cases(rng):
         ("reorg_s2d", reorg.reorg_s2d, (f(2, 6, 4, 8), 2, f(2, 3, 2, 5), f(8), True)),
         ("bias_leaky_nhwc", epilogue.bias_leaky_nhwc, (f(2, 6, 4, 8), f(8), True)),
         ("bias_leaky_nhwc", epilogue.bias_leaky_nhwc, (f(1, 3, 5, 125), f(125), False)),
+        # a padded conv's raw output: the first 125 of 128 channels
+        ("bias_leaky_nhwc", epilogue.bias_leaky_nhwc, (f(2, 3, 5, 128)[..., :125], f(125), True)),
     ]
 
 
-@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("case", range(11))
 def test_custom_op_equals_its_wrapper_and_fakes_its_shapes(rng, case):
     name, wrapper, args = _op_cases(rng)[case]
     op = getattr(ops, name)

@@ -182,7 +182,10 @@ def test_routing_at_416(monkeypatch):
 def test_fold_adds_no_kernel_layouts_without_tokens():
     model = MobileNet(anchors=np.ones((5, 2), np.float32), num_classes=20)
     folded = model.fold(*model.init(torch.Generator().manual_seed(0)))
-    assert all(sorted(lp) == ["b", "w"] for lp in folded.values())
+    # no kernel's layout; the 125-wide head's weight padded to 128 (engine.padded_width)
+    assert all(sorted(lp) == ["b", "w"] for name, lp in folded.items() if name != "out")
+    assert sorted(folded["out"]) == ["b", "w", "w_pad"]
+    assert folded["out"]["w_pad"].shape == (128, 1024, 1, 1)
     assert folded["dw7"]["w"].shape == (512, 1, 3, 3)
 
 

@@ -74,7 +74,7 @@ def test_every_conv_pool_pair_takes_the_pool_kernel_with_its_bias(monkeypatch, n
     _record(monkeypatch, ek, "bias_leaky_nhwc", epilogues)
     with torch.no_grad():
         model.apply_folded(folded, _images())
-    layer = {id(lp["w"]): n for n, lp in folded.items()}
+    layer = {id(w): n for n, lp in folded.items() for k, w in lp.items() if k in ("w", "w_pad")}
     raw = {layer[id(args[1])]: out for args, out in convs}
     assert len(pools) == len(pairs)
     for ((x, bias, act, full), out), (conv_name, want_full) in zip(pools, pairs):

@@ -151,6 +151,10 @@ def test_profiled_detect_has_one_leaf_per_executed_op_under_one_root(route):
             whole.add(names[names.index(s["attrs"]["layer"]) + 1])
     convs = [s["attrs"]["layer"] for s in _named(spans, "yolojax_torch.plan.conv")]
     assert convs == [n for n in names if n not in whole]
+    # the head (125 channels) is the one conv run at a padded width
+    padded = [s["attrs"] for s in _named(spans, "yolojax_torch.plan.conv")
+              if "padded" in s["attrs"]]
+    assert padded == [{"layer": "out", "padded": 128}]
     # spans end in order, each inside its parent
     by_id = {s["id"]: s for s in spans}
     for s in spans:

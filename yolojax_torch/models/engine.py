@@ -54,7 +54,15 @@ Where routing goes further than the JAX engine's:
   kernel (``kernels/epilogue.py``), bit for bit ``blocks.bias_leaky``'s
   result, under no ``[model] pallas`` token: the counterpart of the epilogue
   that XLA always fuses into the JAX engine's conv.  On the CPU the wrapper
-  runs ``bias_leaky`` itself, and the unfolded path never reaches it;
+  runs ``bias_leaky`` itself, and the unfolded path never reaches it.  Where
+  such a conv's ``out_ch`` is not a multiple of ``PAD`` (every head: 125,
+  425, 28 269), cuDNN runs it at the padded width of :func:`padded_width`
+  on a weight whose extra rows are zeros (``w_pad``,
+  :func:`add_kernel_weights`), and the epilogue reads the first ``out_ch``
+  channels of that output: an odd width leaves cuDNN on an sm75 GEMM at
+  one-element alignment (on an H100 the 1024 → 28 269 head ran at ~10 % of
+  its peak) and the epilogue kernel on one lane a thread.  The real
+  channels' sums, and so the result, are the unpadded conv's;
 * while ``torch.export`` traces, the routed layers call the kernels' custom
   ops (``kernels/ops.py``), which carry the same launches into the exported
   program; the eager forward calls the wrappers directly;
@@ -65,7 +73,8 @@ Where routing goes further than the JAX engine's:
 Each op of the folded walk runs under a span of ``utils/trace.py``
 (``yolojax_torch.plan.<op>``: ``layout`` for the entry cast and the exit
 copy, ``conv``, ``epilogue``, ``pool``, ``reorg``, ``concat``, ``dwconv``,
-``dwsep``; a fused kernel's span holds the epilogue it takes), which records
+``dwsep``; a fused kernel's span holds the epilogue it takes; a padded
+conv's span carries ``padded=<width>`` beside ``layer=``), which records
 only while a profiler does; ``mark`` and ``load`` record nothing, nor does
 the unfolded walk.
 """
@@ -89,10 +98,12 @@ from . import LayerDef, kernel_active
 from .blocks import BNConfig, conv, conv_apply, fold_bn, max_pool
 
 __all__ = ["plan_convs", "run_plan", "fold_plan", "resolve_in_channels", "add_kernel_weights",
-           "route", "launches", "Step"]
+           "route", "launches", "padded_width", "Step"]
 
 # the dwsep pair gate's bound on the input height (``engine.py:97``)
 DWSEP_MAX_H = 40
+# a padded conv's output width is a multiple of PAD: a pixel row of 16 bytes' multiple in bf16
+PAD = 8
 # the span of each step of the folded walk but mark and load, which record none
 _SPANS = {op: f"yolojax_torch.plan.{op}"
           for op in ("conv", "epilogue", "pool", "reorg", "concat", "dwconv", "dwsep")}
@@ -175,6 +186,16 @@ def _dwsep_pair(plan, i, height: int, dtype) -> LayerDef | None:
     return _pointwise_after(plan, i)
 
 
+def padded_width(d: LayerDef) -> int | None:
+    """The width a conv runs at on cuDNN where its epilogue goes to
+    ``bias_leaky_nhwc``: ``out_ch`` rounded up to a multiple of ``PAD``
+    where it is not one; None for a multiple, or a grouped conv (whose
+    output channels its groups fix)."""
+    if d.groups != 1 or d.out_ch % PAD == 0:
+        return None
+    return -(-d.out_ch // PAD) * PAD
+
+
 def _pool_kernel_takes(size: int, stride: int, height: int, width: int) -> bool:
     """A pool that runs in ``maxpool2x2``, at any channel count: 2×2/2 over
     an even H and W."""
@@ -192,7 +213,7 @@ class Step(NamedTuple):
     conv's raw output for an epilogue or a fused pool or reorg); ``key`` the
     slot it writes or reads (a fused pool's full output, a fused reorg's
     concat); ``arg`` a pool's (size, stride), a reorg's stride, a dwsep
-    pair's 1×1 conv."""
+    pair's 1×1 conv, a padded conv's width (:func:`padded_width`)."""
 
     op: str
     kernel: str | None = None
@@ -218,7 +239,8 @@ def route(plan, *, pallas: frozenset, reorg_order: str, dtype, channels: int, he
       even H and W follows, directly or through one ``mark`` (whose slot
       gets the full output); ``reorg_s2d`` where a reorg follows under
       ``reorg`` in s2d order (with the ``concat`` right after it); else
-      ``bias_leaky_nhwc``.
+      ``bias_leaky_nhwc``, and then the conv runs at its
+      :func:`padded_width` where it has one.
     * A pool that follows no conv runs bare in ``maxpool2x2`` where it is
       2×2/2 over an even H and W, in ``max_pool`` otherwise; a reorg in
       ``reorg_s2d`` under ``reorg`` in s2d order, in torch otherwise.
@@ -241,20 +263,21 @@ def route(plan, *, pallas: frozenset, reorg_order: str, dtype, channels: int, he
             if use_dw_k and _dw_routable(d):
                 steps.append(Step("dwconv", "dwconv3x3", d, shape))
                 continue
-            steps.append(Step("conv", None, d, shape))
             y = shapes[i]
             key = plan[i][1] if i < end and plan[i][0] == "mark" else None
             j = i + (key is not None)
             nxt = plan[j] if j < end else ("end",)
             if nxt[0] == "pool" and _pool_kernel_takes(nxt[1], nxt[2], y[1], y[2]):
-                steps.append(Step("pool", "maxpool2x2", d, y, key=key))
+                tail = Step("pool", "maxpool2x2", d, y, key=key)
                 i = j + 1
             elif use_reorg_k and key is None and nxt[0] == "reorg":
                 cat = plan[j + 1][1] if j + 1 < end and plan[j + 1][0] == "concat" else None
-                steps.append(Step("reorg", "reorg_s2d", d, y, key=cat, arg=nxt[1]))
+                tail = Step("reorg", "reorg_s2d", d, y, key=cat, arg=nxt[1])
                 i = j + 1 + (cat is not None)
             else:
-                steps.append(Step("epilogue", "bias_leaky_nhwc", d, y))
+                tail = Step("epilogue", "bias_leaky_nhwc", d, y)
+            pad = padded_width(d) if tail.op == "epilogue" else None
+            steps += [Step("conv", None, d, shape, arg=pad), tail]
         elif kind == "pool":
             takes = _pool_kernel_takes(op[1], op[2], shape[1], shape[2])
             steps.append(Step("pool", "maxpool2x2" if takes else None, shape=shape, arg=op[1:]))
@@ -321,9 +344,14 @@ def run_plan(plan, params, x, *, state: dict | None = None, bn: BNConfig | None 
             x = slots[s.key]
             continue
         p = None if d is None else folded[d.name]
-        with span(_SPANS[op]) if d is None else span(_SPANS[op], layer=d.name):
+        attrs = {} if d is None else {"layer": d.name}
+        if op == "conv" and s.arg:
+            attrs["padded"] = s.arg
+        with span(_SPANS[op], **attrs):
             # the kernels take NHWC: the running tensor's own bytes, permuted views
-            if op == "conv":
+            if op == "conv" and s.arg:      # the first out_ch channels of the padded output
+                y = conv(x, p["w_pad"], stride=d.stride)[:, :d.out_ch]
+            elif op == "conv":
                 y = conv(x, p["w"], stride=d.stride, groups=d.groups)
             elif op == "epilogue":
                 x = bias_leaky_nhwc(y.permute(0, 2, 3, 1), p["b"], d.act).permute(0, 3, 1, 2)
@@ -390,11 +418,19 @@ def _run_unfolded(plan, params, state, x, *, bn: BNConfig, train: bool, compute_
 
 
 def add_kernel_weights(plan, folded, pallas: frozenset) -> None:
-    """Store, once, the weight layouts the selected kernels read, beside the
-    OIHW ``w`` of each layer they may take: ``taps`` (3, 3, C) for a routable
-    depthwise conv; for the 1×1 conv after it ``w_io`` (C, Cout), the JAX
-    kernel's layout, and ``w_oi`` (Cout, C), which the bf16 dwsep kernel
-    reads."""
+    """Store, once, the weight layouts the walk reads besides the OIHW
+    ``w`` of each layer: ``w_pad`` for a conv that has a padded width
+    (:func:`padded_width`: ``w``'s rows, then zero rows, ``channels_last``);
+    for the selected kernels ``taps`` (3, 3, C) for a routable depthwise
+    conv, and for the 1×1 conv after it ``w_io`` (C, Cout), the JAX kernel's
+    layout, and ``w_oi`` (Cout, C), which the bf16 dwsep kernel reads."""
+    for d in plan_convs(plan):
+        pad = padded_width(d)
+        if pad is not None:
+            w = folded[d.name]["w"]
+            folded[d.name]["w_pad"] = torch.cat(
+                [w, w.new_zeros((pad - d.out_ch, *w.shape[1:]))]).contiguous(
+                memory_format=torch.channels_last)
     use_dw_k = kernel_active("dwconv", pallas)
     use_dwsep = kernel_active("dwsep", pallas)
     for i, op in enumerate(plan):
